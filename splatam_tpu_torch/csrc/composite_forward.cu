@@ -15,6 +15,10 @@
 // shared memory as a broadcast. A block stops as soon as every pixel has
 // terminated. The output goes straight into the [C, H, W] image; no
 // tile-major intermediate and no assemble pass.
+//
+// Two input modes: per-Gaussian rows gathered through pair_gauss (the generic
+// render), or, with a null pair_gauss, one row per sorted pair (the pair-space
+// tracking render, whose rows are projected per pair), read in place.
 #include "common.cuh"
 
 namespace splatam {
@@ -27,7 +31,8 @@ __global__ void __launch_bounds__(PIX)
   __shared__ SharedPairs<NCH> sh;
   const int start = tile_start[blockIdx.x], end = tile_start[blockIdx.x + 1];
   auto stage = [&](int i, int slot) {
-    const float* a = attrs + size_t(pair_gauss[i]) * (6 + NCH);
+    const size_t row = pair_gauss != nullptr ? size_t(pair_gauss[i]) : size_t(i);
+    const float* a = attrs + row * (6 + NCH);
 #pragma unroll
     for (int r = 0; r < 6 + NCH; ++r) sh.v[r][slot] = a[r];
   };

@@ -37,9 +37,11 @@ _I = ctypes.c_int
 # name -> argument types (every function returns int: a cudaError_t)
 _SIGNATURES = {
     "composite_forward_ch5": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "composite_backward_ch5": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "fused_forward": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "fused_backward": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "segment_reduce8": [_P, _P, _P, _P, _I, _P, _P],
+    "segment_reduce11": [_P, _P, _P, _P, _I, _P, _P],
     "last_error_string": [_I],
 }
 

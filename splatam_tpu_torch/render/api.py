@@ -1,8 +1,11 @@
 """Public render API: RGB + depth + silhouette + depth^2 in one pass.
 
-Counterpart of splatam_tpu/render/api.py for the slice the SLAM loop
-runs: one fused pass composites r, g, b, z, z^2 and emits the silhouette
-from the transmittance (silhouette = 1 - T_final). The reference's
+Counterpart of splatam_tpu/render/api.py: one pass composites r, g, b, z,
+z^2 and emits the silhouette from the transmittance (silhouette =
+1 - T_final). Three renders: the generic differentiable one (projection
+by autograd, K1 -> K2 -> K3), the pair-space tracking render (per-pair
+rows, gradients to the pose) and the fused isotropic mapping render. The
+reference's
 RenderConfig has no counterpart: each of its fields sizes a pair buffer
 or picks a backend, and the port sizes buffers exactly and has one
 backend per device.
@@ -16,7 +19,7 @@ import torch
 from splatam_tpu_torch.core.camera import Camera
 from splatam_tpu_torch.core.transforms import normalize
 from splatam_tpu_torch.render import binning as binning_mod
-from splatam_tpu_torch.render import composite, fused_iso
+from splatam_tpu_torch.render import composite, fused_iso, pairspace
 from splatam_tpu_torch.render import projection as projection_mod
 
 
@@ -31,9 +34,10 @@ class RenderOutput(NamedTuple):
 class PairStructure(NamedTuple):
     """The geometry-only binning of one render, reusable across iterations
     whose geometry drifts slowly (render.binning.Bins plus, for tracking,
-    the world-8 rows gathered per sorted pair). Per-pair alpha is always
-    evaluated from the current iteration's projection; a stale structure
-    only misses pairs the 1/255 cutoff would mostly skip anyway."""
+    the world rows gathered per sorted pair: world-8 for an isotropic map,
+    world-16 otherwise). Per-pair alpha is always evaluated from the
+    current iteration's projection; a stale structure only misses pairs
+    the 1/255 cutoff would mostly skip anyway."""
 
     pair_gauss: torch.Tensor
     tile_start: torch.Tensor
@@ -41,7 +45,8 @@ class PairStructure(NamedTuple):
     counts: torch.Tensor
     dst: torch.Tensor
     n_pairs: int
-    world8: torch.Tensor | None = None  # [P, 8] tracking only
+    world8: torch.Tensor | None = None  # [P, 8] tracking an isotropic map
+    world16: torch.Tensor | None = None  # [P, 13] tracking an anisotropic map
 
 
 def _prep_gaussians(unnorm_rotations, logit_opacities, log_scales):
@@ -78,42 +83,45 @@ def _public(img, n_pairs) -> RenderOutput:
 
 
 def render_rgbd_sil(cam: Camera, means3d, rgb_colors, unnorm_rotations, logit_opacities,
-                    log_scales, active) -> RenderOutput:
-    """Generic render (forward only): project, bin, composite with K1.
+                    log_scales, active, pair_structure: PairStructure | None = None
+                    ) -> RenderOutput:
+    """Generic differentiable render: project (plain PyTorch, so autograd
+    carries the gradients to every input), bin under no_grad, composite
+    with K1 forward and K2 -> K3 backward (composite.CompositeGauss).
 
-    A gradient through this render needs the composite-backward kernel,
-    which is not ported yet (ROADMAP, TPU kernel list item 5)."""
-    if torch.is_grad_enabled() and any(
-        x.requires_grad for x in (means3d, rgb_colors, unnorm_rotations,
-                                  logit_opacities, log_scales)
-    ):
-        raise NotImplementedError(
-            "gradients through the generic render need the composite-backward "
-            "kernel (ROADMAP, TPU kernel list item 5)"
-        )
-    with torch.no_grad():
-        proj, aux = project_gaussians(cam, means3d, unnorm_rotations, logit_opacities,
-                                      log_scales, active)
-        b = binning_mod.build_bins(proj, aux, cam.width, cam.height, far=cam.far)
-        depth = proj.depth[:, None]
-        attrs = torch.cat(
-            [proj.xy, proj.conic, proj.opacity[:, None], rgb_colors, depth, depth * depth],
-            dim=1,
-        ).contiguous()
-        img = composite.composite_forward(attrs, b.pair_gauss, b.tile_start, cam.width,
-                                          cam.height)
-    return _public(img, b.n_pairs)
+    means3d are in the frame cam.w2c maps from. `pair_structure` reuses an
+    earlier binning; per-pair alpha still comes from this call's
+    projection, and Gaussians inactive since the structure was built
+    composite with opacity 0 (so every pair keeps its list position)."""
+    proj, aux = project_gaussians(cam, means3d, unnorm_rotations, logit_opacities,
+                                  log_scales, active)
+    opacity = proj.opacity
+    if pair_structure is None:
+        with torch.no_grad():
+            b = binning_mod.build_bins(proj, aux, cam.width, cam.height, far=cam.far)
+        ps = PairStructure(b.pair_gauss, b.tile_start, b.offsets, b.counts, b.dst, b.n_pairs)
+    else:
+        ps = pair_structure
+        opacity = torch.where(active, opacity, 0.0)
+    depth = proj.depth[:, None]
+    chans = torch.cat([rgb_colors, depth, depth * depth], dim=1)
+    img = composite.CompositeGauss.apply(proj.xy, proj.conic, opacity, chans, ps,
+                                         cam.width, cam.height)
+    return _public(img, ps.n_pairs)
 
 
 def render_rgbd_sil_pairspace(cam: Camera, ps: PairStructure, q, t) -> RenderOutput:
-    """Tracking render: the fused kernels project ps.world8 at pose (q, t);
-    gradients flow to (q, t)."""
-    if ps.world8 is None:
-        raise NotImplementedError(
-            "pair-space tracking of an anisotropic map (world16 rows) needs the "
-            "composite-backward kernel (ROADMAP, TPU kernel list item 5)"
-        )
-    return _public(fused_iso.composite_fused_pairs(ps.world8, ps, cam, q, t), ps.n_pairs)
+    """Tracking render at pose (q, t) from the structure's per-pair world
+    rows; gradients flow to (q, t) only. World-8 rows (isotropic map): the
+    fused kernels project in-kernel. World-16 rows: project_pairs in
+    PyTorch, K1 and K2 on per-pair rows (composite.CompositePairs)."""
+    if ps.world8 is not None:
+        img = fused_iso.composite_fused_pairs(ps.world8, ps, cam, q, t)
+    else:
+        rows = pairspace.project_pairs(ps.world16, q, t, cam.fx, cam.fy, cam.cx, cam.cy,
+                                       cam.width, cam.height)
+        img = composite.CompositePairs.apply(rows, ps.tile_start, cam.width, cam.height)
+    return _public(img, ps.n_pairs)
 
 
 def render_rgbd_sil_mapping_fused(cam: Camera, ps: PairStructure, means3d, rgb_colors,

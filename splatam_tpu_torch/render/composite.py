@@ -1,5 +1,7 @@
-"""Tile compositing: the composite-forward kernel (K1) and the segment
-reduce kernel (K3), each with its plain PyTorch version.
+"""Tile compositing: the composite-forward kernel (K1), the
+composite-backward kernel (K2) and the segment reduce kernel (K3), each with
+its plain PyTorch version, and the two autograd Functions of the generic
+differentiable render built on them.
 
 Counterpart of splatam_tpu/render/pallas/composite_pallas.py. The plain
 versions here are the specification the kernels are held to, and what
@@ -9,10 +11,12 @@ pairs in the tile's depth order, skip a pair when power > 0 or
 alpha < 1/255, clamp alpha at 0.99, stop BEFORE the pair for which
 T*(1-alpha) < 1e-4, silhouette = 1 - T_final.
 
-Per-pair attribute rows of the generic compositor: x, y, conic a, b, c,
-opacity, then the channels. Output rows of every forward: the channels,
-then the silhouette, then n_contrib (1-based index, within the tile, of
-the last pair applied at the pixel), as an image [ch + 2, H, W].
+Attribute rows of the compositor: x, y, conic a, b, c, opacity, then the
+channels. K1 and K2 take them per Gaussian ([N, 6 + ch], gathered through
+the sorted pairs' Gaussian indices) or per sorted pair ([P, 6 + ch], with
+no index). Output rows of every forward: the channels, then the
+silhouette, then n_contrib (1-based index, within the tile, of the last
+pair applied at the pixel), as an image [ch + 2, H, W].
 """
 from __future__ import annotations
 
@@ -170,27 +174,47 @@ def composite_pairs_backward_plain(xy, conic, opacity, chans, tile_start, width:
 # ---------------------------------------------------------------------------
 
 
+def _rows(attrs, pair_gauss):
+    """Per-pair attribute rows: gathered through pair_gauss, or attrs
+    itself when it already holds one row per sorted pair."""
+    return attrs if pair_gauss is None else attrs[pair_gauss.long()]
+
+
 def composite_forward_plain(attrs, pair_gauss, tile_start, width: int, height: int):
     """attrs [N, 6 + ch] per-Gaussian rows (x, y, conic a, b, c, opacity,
-    channels) composited through the sorted pairs pair_gauss [P]."""
-    a = attrs[pair_gauss.long()]
+    channels) composited through the sorted pairs pair_gauss [P]; with
+    pair_gauss None, attrs holds one row per sorted pair."""
+    a = _rows(attrs, pair_gauss)
     return composite_pairs_plain(a[:, 0:2], a[:, 2:5], a[:, 5], a[:, 6:], tile_start,
                                  width, height)
 
 
-def composite_forward(attrs, pair_gauss, tile_start, width: int, height: int):
-    """K1 wrapper (forward only): [ch + 2, H, W] from per-Gaussian attrs,
-    see composite_forward_plain. CUDA tensors launch the kernel; CPU
-    tensors take the plain version."""
-    if not attrs.is_cuda:
-        return composite_forward_plain(attrs, pair_gauss, tile_start, width, height)
+def _check_rows(attrs, pair_gauss, tile_start, width, height):
+    """Validate K1/K2 inputs; returns (grid_x, grid_y, pair count)."""
     gx, gy = grid_shape(width, height)
     _cuda.require(attrs, "attrs", torch.float32, (None, 6 + CH))
-    _cuda.require(pair_gauss, "pair_gauss", torch.int32, (None,))
+    if pair_gauss is not None:
+        _cuda.require(pair_gauss, "pair_gauss", torch.int32, (None,))
     _cuda.require(tile_start, "tile_start", torch.int32, (gx * gy + 1,))
+    n_pairs = attrs.shape[0] if pair_gauss is None else pair_gauss.shape[0]
+    return gx, gy, n_pairs
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def composite_forward(attrs, pair_gauss, tile_start, width: int, height: int):
+    """K1 wrapper (forward only): [ch + 2, H, W] from per-Gaussian attrs
+    and pair_gauss, or from per-pair rows with pair_gauss None; see
+    composite_forward_plain. CUDA tensors launch the kernel; CPU tensors
+    take the plain version."""
+    if not attrs.is_cuda:
+        return composite_forward_plain(attrs, pair_gauss, tile_start, width, height)
+    gx, gy, _ = _check_rows(attrs, pair_gauss, tile_start, width, height)
     out = torch.empty((CH + 2, height, width), dtype=torch.float32, device=attrs.device)
     err = _cuda.lib().composite_forward_ch5(
-        attrs.data_ptr(), pair_gauss.data_ptr(), tile_start.data_ptr(),
+        attrs.data_ptr(), _ptr(pair_gauss), tile_start.data_ptr(),
         gx, gy, width, height, out.data_ptr(), _cuda.stream_ptr(attrs))
     _cuda.check(err, "composite_forward_ch5")
     composite_forward.launches += 1
@@ -201,8 +225,47 @@ composite_forward.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K2: composite backward
+# ---------------------------------------------------------------------------
+
+
+def composite_backward_plain(attrs, pair_gauss, tile_start, width: int, height: int,
+                             state, g):
+    """Per-pair screen-space gradients [P, 6 + ch] of composite_forward_plain
+    (composite_pairs_backward_plain on the gathered rows)."""
+    a = _rows(attrs, pair_gauss)
+    return composite_pairs_backward_plain(a[:, 0:2], a[:, 2:5], a[:, 5], a[:, 6:], tile_start,
+                                          width, height, state, g)
+
+
+def composite_backward(attrs, pair_gauss, tile_start, width: int, height: int, state, g):
+    """K2 wrapper: per-pair gradients [P, 6 + ch] in sorted-pair order
+    (d x, d y, d conic a, b, c, d opacity, d channels) given K1's output
+    `state` [ch + 2, H, W] and cotangents g [ch + 1, H, W] of the channels
+    and the silhouette. Inputs as composite_forward takes them. Every slot
+    is written: pairs no pixel reached get 0."""
+    if not attrs.is_cuda:
+        return composite_backward_plain(attrs, pair_gauss, tile_start, width, height, state, g)
+    gx, gy, n_pairs = _check_rows(attrs, pair_gauss, tile_start, width, height)
+    _cuda.require(state, "state", torch.float32, (CH + 2, height, width))
+    _cuda.require(g, "g", torch.float32, (CH + 1, height, width))
+    out = torch.empty((n_pairs, 6 + CH), dtype=torch.float32, device=attrs.device)
+    err = _cuda.lib().composite_backward_ch5(
+        attrs.data_ptr(), _ptr(pair_gauss), tile_start.data_ptr(), gx, gy, width, height,
+        state.data_ptr(), g.data_ptr(), out.data_ptr(), _cuda.stream_ptr(attrs))
+    _cuda.check(err, "composite_backward_ch5")
+    composite_backward.launches += 1
+    return out
+
+
+composite_backward.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K3: segment reduce (per-pair -> per-Gaussian gradient sums)
 # ---------------------------------------------------------------------------
+
+SEGMENT_WIDTHS = (8, 11)  # the fused path's world rows, the generic path's 6 + CH
 
 
 def segment_reduce_plain(dpair, dst, offsets, counts):
@@ -216,23 +279,75 @@ def segment_reduce_plain(dpair, dst, offsets, counts):
 
 
 def segment_reduce(dpair, dst, offsets, counts):
-    """K3 wrapper: [N, 8] per-Gaussian sums of dpair [P, 8], see
-    segment_reduce_plain. Deterministic on the card (fixed summation
-    order per Gaussian)."""
+    """K3 wrapper: [N, k] per-Gaussian sums of dpair [P, k], k in
+    SEGMENT_WIDTHS; see segment_reduce_plain. Deterministic on the card
+    (fixed summation order per Gaussian). `launches` counts the launches
+    of each width's kernel."""
     if not dpair.is_cuda:
         return segment_reduce_plain(dpair, dst, offsets, counts)
-    n = counts.shape[0]
-    _cuda.require(dpair, "dpair", torch.float32, (None, 8))
+    n, k = counts.shape[0], dpair.shape[1]
+    if k not in SEGMENT_WIDTHS:
+        raise ValueError(f"dpair: expected {SEGMENT_WIDTHS} columns, got {k}")
+    _cuda.require(dpair, "dpair", torch.float32, (None, k))
     _cuda.require(dst, "dst", torch.int32, (dpair.shape[0],))
     _cuda.require(offsets, "offsets", torch.int32, (n,))
     _cuda.require(counts, "counts", torch.int32, (n,))
-    out = torch.empty((n, 8), dtype=torch.float32, device=dpair.device)
-    err = _cuda.lib().segment_reduce8(
+    out = torch.empty((n, k), dtype=torch.float32, device=dpair.device)
+    name = f"segment_reduce{k}"
+    err = getattr(_cuda.lib(), name)(
         dpair.data_ptr(), dst.data_ptr(), offsets.data_ptr(), counts.data_ptr(), n,
         out.data_ptr(), _cuda.stream_ptr(dpair))
-    _cuda.check(err, "segment_reduce8")
-    segment_reduce.launches += 1
+    _cuda.check(err, name)
+    segment_reduce.launches[k] += 1
     return out
 
 
-segment_reduce.launches = 0
+segment_reduce.launches = dict.fromkeys(SEGMENT_WIDTHS, 0)
+
+
+# ---------------------------------------------------------------------------
+# autograd around the kernels (the generic differentiable render)
+# ---------------------------------------------------------------------------
+
+
+class CompositeGauss(torch.autograd.Function):
+    """Per-Gaussian compositing (_composite_core in the JAX package):
+    forward K1, backward K2 -> K3, returning d(xy, conic, opacity,
+    channels) per Gaussian. ps is a render.api.PairStructure."""
+
+    @staticmethod
+    def forward(ctx, xy, conic, opacity, chans, ps, width, height):
+        attrs = torch.cat([xy, conic, opacity[:, None], chans], dim=1).contiguous()
+        out = composite_forward(attrs, ps.pair_gauss, ps.tile_start, width, height)
+        ctx.save_for_backward(attrs, out)
+        ctx.ps, ctx.wh = ps, (width, height)
+        return out[:CH + 1]
+
+    @staticmethod
+    def backward(ctx, g):
+        attrs, out = ctx.saved_tensors
+        ps = ctx.ps
+        dpair = composite_backward(attrs, ps.pair_gauss, ps.tile_start, *ctx.wh, out,
+                                   g.contiguous())
+        d = segment_reduce(dpair, ps.dst, ps.offsets, ps.counts)
+        return d[:, 0:2], d[:, 2:5], d[:, 5], d[:, 6:], None, None, None
+
+
+class CompositePairs(torch.autograd.Function):
+    """Per-pair compositing (_composite_pairs_core in the JAX package):
+    forward K1 on per-pair rows [P, 6 + ch], backward K2 only, returning
+    the per-pair gradients with no reduction."""
+
+    @staticmethod
+    def forward(ctx, rows, tile_start, width, height):
+        rows = rows.contiguous()
+        out = composite_forward(rows, None, tile_start, width, height)
+        ctx.save_for_backward(rows, tile_start, out)
+        ctx.wh = (width, height)
+        return out[:CH + 1]
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, tile_start, out = ctx.saved_tensors
+        return (composite_backward(rows, None, tile_start, *ctx.wh, out, g.contiguous()),
+                None, None, None)

@@ -19,6 +19,7 @@ import torch
 
 from splatam_tpu_torch.core import gaussians as G
 from splatam_tpu_torch.core.camera import setup_camera
+from splatam_tpu_torch.core.transforms import matrix_to_quaternion
 from splatam_tpu_torch.data import get_dataset
 from splatam_tpu_torch.slam import steps
 from splatam_tpu_torch.slam.config import backfill_defaults
@@ -85,10 +86,6 @@ def _unported(config: dict) -> None:
     """Raise for every configuration this slice does not run."""
     tpu, data = config["tpu"], config["data"]
     checks = [
-        (int(tpu.get("rebin_every", 1)) <= 1,
-         "tpu.rebin_every=1 needs the composite-backward kernel (ROADMAP, TPU kernel list item 5)"),
-        (config["gaussian_distribution"] != "isotropic",
-         "anisotropic maps need the composite-backward kernel (ROADMAP, TPU kernel list item 5)"),
         ((config["tracking"].get("coarse_to_fine") or {}).get("enabled", False),
          "coarse-to-fine tracking is not ported yet (ROADMAP, module list item 5)"),
         (int(tpu.get("spatial_shards", 0)) > 1,
@@ -103,6 +100,9 @@ def _unported(config: dict) -> None:
          or data["tracking_image_width"] != data["desired_image_width"],
          "separate tracking/densification resolutions are not ported yet "
          "(ROADMAP, module list item 5)"),
+        (int(config.get("map_every", 1)) != 1,
+         "map_every != 1 belongs to the full rgbd_slam loop, which is not ported yet "
+         "(ROADMAP, module list item 6)"),
     ]
     for bad, msg in checks:
         if bad:
@@ -131,6 +131,7 @@ class SLAMRuntime:
         num_frames = data.get("num_frames", -1)
         self.num_frames = len(self.dataset) if num_frames == -1 else num_frames
         self.rebin_every = int(config["tpu"]["rebin_every"])
+        self.isotropic = config["gaussian_distribution"] == "isotropic"
         self.pcfg_track = _phase_cfg(config["tracking"])
         self.pcfg_map = _phase_cfg(config["mapping"])
         self.prune_cfg = _prune_cfg(config["mapping"])
@@ -145,7 +146,7 @@ class SLAMRuntime:
         pts, cols, mean_sq, valid = steps.first_frame_pointcloud(color, depth, self.cam)
         while capacity < pts.shape[0]:
             capacity *= 2
-        self.gm = G.from_pointcloud(pts, cols, mean_sq, valid, capacity, True)
+        self.gm = G.from_pointcloud(pts, cols, mean_sq, valid, capacity, self.isotropic)
         self.timestep = torch.zeros((capacity,), dtype=torch.float32, device=device)
         self.scene_radius = float(depth_np.max()) / config["scene_radius_depth_ratio"]
 
@@ -259,6 +260,8 @@ class SLAMRuntime:
             "means3D", "rgb_colors", "unnorm_rotations", "logit_opacities", "log_scales"))
         slots, qs, ts, struct_qs, struct_ts, iter_idx = self._mapping_inputs(
             time_idx, selected, num_iters)
+        if self.rebin_every <= 1:  # every iteration bins anew
+            struct_qs = struct_ts = iter_idx = None
         view = G.slice_prefix(self.gm, self.gm.span())
         view = steps.mapping_phase(
             view, self.kf_colors, self.kf_depths, slots, qs, ts, self.scene_radius,
@@ -268,25 +271,34 @@ class SLAMRuntime:
 
 
 def run_frame(rt: SLAMRuntime, time_idx: int) -> None:
-    """One frame of the online loop in bench.py's order: constant-velocity
-    pose init, compact, track, densify, keyframe selection, stage the
-    current frame, map, and append a keyframe every keyframe_every frames."""
+    """One frame of the online loop in rgbd_slam's order: pose init
+    (constant velocity with tracking.forward_prop, else the previous pose),
+    compact, track (or, with tracking.use_gt_poses, take the ground-truth
+    pose), densify, keyframe selection, stage the current frame, map, and
+    append a keyframe every keyframe_every frames."""
     color_np, depth_np, _, gt_pose = rt.dataset[time_idx]
-    rt.gt_w2c_all.append(np.linalg.inv(gt_pose))
+    gt_w2c = np.linalg.inv(gt_pose)
+    rt.gt_w2c_all.append(gt_w2c)
     color, depth = frame_to_tensors(color_np, depth_np, rt.device)
-    if time_idx > 1:
+    cfg_t = rt.config["tracking"]
+    if time_idx > 1 and cfg_t["forward_prop"]:
         p1 = rt.cam_rots[time_idx - 1] / np.linalg.norm(rt.cam_rots[time_idx - 1])
         p2 = rt.cam_rots[time_idx - 2] / np.linalg.norm(rt.cam_rots[time_idx - 2])
         nr = p1 + (p1 - p2)
         rt.cam_rots[time_idx] = nr / np.linalg.norm(nr)
         rt.cam_trans[time_idx] = rt.cam_trans[time_idx - 1] + (
             rt.cam_trans[time_idx - 1] - rt.cam_trans[time_idx - 2])
-    elif time_idx == 1:
-        rt.cam_rots[1] = rt.cam_rots[0]
-        rt.cam_trans[1] = rt.cam_trans[0]
+    elif time_idx > 0:
+        rt.cam_rots[time_idx] = rt.cam_rots[time_idx - 1]
+        rt.cam_trans[time_idx] = rt.cam_trans[time_idx - 1]
     rt.compact()
     if time_idx > 0:
-        rt.track_frame(time_idx, color, depth)
+        if cfg_t.get("use_gt_poses", False):
+            rot = torch.as_tensor(gt_w2c[:3, :3], dtype=torch.float32)
+            rt.cam_rots[time_idx] = matrix_to_quaternion(rot).numpy()
+            rt.cam_trans[time_idx] = gt_w2c[:3, 3]
+        else:
+            rt.track_frame(time_idx, color, depth)
         rt.densify_frame(time_idx, color, depth)
     selected = rt.select_keyframes(time_idx, depth_np)
     rt._stage_keyframe(rt.kf_scratch_slot, color_np, depth_np)

@@ -18,8 +18,8 @@ import torch
 from splatam_tpu_torch.core.camera import Camera
 from splatam_tpu_torch.core.gaussians import GaussianMap
 from splatam_tpu_torch.core.losses import calc_ssim
-from splatam_tpu_torch.core.transforms import build_rotation, normalize
-from splatam_tpu_torch.render import api
+from splatam_tpu_torch.core.transforms import build_rotation, normalize, quat_mult
+from splatam_tpu_torch.render import api, pairspace
 from splatam_tpu_torch.render.fused_iso import pack_world8
 from splatam_tpu_torch.slam import optim
 
@@ -47,17 +47,18 @@ class LossAux(NamedTuple):
 
 def transform_to_frame(gm: GaussianMap, q, t, gaussians_grad: bool, camera_grad: bool):
     """World -> camera transform with phase-gated gradients
-    (utils/slam_helpers.py:252-304). Isotropic maps keep their rotations."""
-    if not gm.isotropic:
-        raise NotImplementedError(
-            "anisotropic maps need the composite-backward kernel "
-            "(ROADMAP, TPU kernel list item 5)"
-        )
+    (utils/slam_helpers.py:252-304). Isotropic maps keep their rotations
+    (a spherical covariance is rotation invariant); anisotropic ones are
+    rotated by the camera."""
     cam_rot = normalize(q) if camera_grad else normalize(q).detach()
     cam_tran = t if camera_grad else t.detach()
     pts = gm.means3d if gaussians_grad else gm.means3d.detach()
+    rots = gm.unnorm_rotations if gaussians_grad else gm.unnorm_rotations.detach()
     rmat = build_rotation(cam_rot[None])[0]
-    return pts @ rmat.T + cam_tran, gm.unnorm_rotations
+    means_cam = pts @ rmat.T + cam_tran
+    if gm.isotropic:
+        return means_cam, rots
+    return means_cam, quat_mult(cam_rot[None], normalize(rots))
 
 
 def _median_lower(x: torch.Tensor) -> torch.Tensor:
@@ -67,18 +68,27 @@ def _median_lower(x: torch.Tensor) -> torch.Tensor:
 
 
 def get_loss(gm: GaussianMap, q, t, color, depth_gt, cam: Camera, pcfg: PhaseConfig,
-             tracking: bool, mapping: bool, pair_structure: api.PairStructure):
-    """Reference get_loss on the fused renders: tracking differentiates the
-    pose through the pair-space render, mapping the Gaussian parameters
-    through the fused mapping render."""
-    if tracking:
-        out = api.render_rgbd_sil_pairspace(cam, pair_structure, q, t)
-    elif mapping:
+             tracking: bool, mapping: bool, pair_structure: api.PairStructure | None = None):
+    """Reference get_loss, routed as the JAX package routes it: tracking
+    with a world-8/16 structure renders in pair space (gradients to the
+    pose), mapping an isotropic map with a structure takes the fused
+    mapping render, and everything else the generic render of
+    transform_to_frame's camera-frame Gaussians, with the phase-gated
+    detaches (tracking: camera only; otherwise the Gaussians only)."""
+    ps = pair_structure
+    if tracking and ps is not None and (ps.world8 is not None or ps.world16 is not None):
+        out = api.render_rgbd_sil_pairspace(cam, ps, q, t)
+    elif mapping and ps is not None and gm.isotropic:
         out = api.render_rgbd_sil_mapping_fused(
-            cam, pair_structure, gm.means3d, gm.rgb_colors, gm.logit_opacities,
+            cam, ps, gm.means3d, gm.rgb_colors, gm.logit_opacities,
             gm.log_scales, gm.active, q, t)
     else:
-        raise NotImplementedError("get_loss serves the tracking and mapping phases")
+        means_cam, rots_cam = transform_to_frame(gm, q, t, not tracking, tracking)
+        params_grad = mapping or not tracking
+        keep = (lambda x: x) if params_grad else (lambda x: x.detach())
+        out = api.render_rgbd_sil(cam, means_cam, keep(gm.rgb_colors), rots_cam,
+                                  keep(gm.logit_opacities), keep(gm.log_scales), gm.active,
+                                  pair_structure=ps)
 
     depth = out.depth
     silhouette = out.silhouette
@@ -128,18 +138,26 @@ def get_loss(gm: GaussianMap, q, t, color, depth_gt, cam: Camera, pcfg: PhaseCon
 
 
 def loss_pair_structure(gm: GaussianMap, q, t, cam: Camera,
-                        with_world8: bool = False) -> api.PairStructure:
+                        with_world16: bool = False) -> api.PairStructure:
     """The reusable binning structure for a get_loss render at this pose and
-    parameter snapshot; with_world8 also gathers the world-8 rows per sorted
-    pair (tracking's rebin sites)."""
+    parameter snapshot; with_world16 also gathers the world rows per sorted
+    pair for the pair-space tracking render (tracking's rebin sites):
+    world-8 rows for an isotropic map, world-16 rows otherwise."""
     with torch.no_grad():
         means_cam, rots_cam = transform_to_frame(gm, q, t, False, False)
         ps = api.compute_pair_structure(cam, means_cam, rots_cam, gm.logit_opacities,
                                         gm.log_scales, gm.active)
-        if with_world8:
-            w8 = pack_world8(gm.means3d, gm.logit_opacities, gm.log_scales,
-                             gm.rgb_colors, gm.active)
-            ps = ps._replace(world8=w8[ps.pair_gauss.long()].contiguous())
+        if with_world16:
+            idx = ps.pair_gauss.long()
+            if gm.isotropic:
+                w8 = pack_world8(gm.means3d, gm.logit_opacities, gm.log_scales,
+                                 gm.rgb_colors, gm.active)
+                ps = ps._replace(world8=w8[idx].contiguous())
+            else:
+                w16 = pairspace.pack_world_rows(gm.means3d, gm.unnorm_rotations,
+                                                gm.logit_opacities, gm.log_scales,
+                                                gm.rgb_colors, gm.active)
+                ps = ps._replace(world16=w16[idx].contiguous())
     return ps
 
 
@@ -150,25 +168,23 @@ def tracking_phase(gm: GaussianMap, q0, t0, color, depth_gt, cam: Camera, num_it
     """Tracking optimization for one frame: fresh Adam on (q, t); the
     best-loss candidate pairs the post-step pose with the pre-step loss (a
     reference quirk kept); optional one-time doubling of the iteration count
-    when the weighted depth loss is above depth_loss_thres; the pair
-    structure is rebuilt every rebin_every iterations.
+    when the weighted depth loss is above depth_loss_thres. With
+    rebin_every > 1 the pair structure is rebuilt every rebin_every
+    iterations and the render runs in pair space; with 1 every iteration
+    bins anew through the generic render (reference semantics).
 
     Returns (best_q, best_t, iterations run, min loss)."""
-    if rebin_every <= 1:
-        raise NotImplementedError(
-            "rebin_every=1 (per-iteration binning) needs the composite-backward "
-            "kernel (ROADMAP, TPU kernel list item 5)"
-        )
+    use_rebin = rebin_every > 1
     gm = GaussianMap(*(a.detach() for a in gm))
     qt = (q0.detach().clone(), t0.detach().clone())
     st = optim.adam_init(qt)
-    ps = loss_pair_structure(gm, q0, t0, cam, with_world8=True)
+    ps = loss_pair_structure(gm, q0, t0, cam, with_world16=True) if use_rebin else None
     best_q, best_t = q0.detach().clone(), t0.detach().clone()
     min_loss = torch.tensor(1e20, dtype=torch.float32, device=q0.device)
     limit, it = num_iters, 0
     while it < limit:
-        if it > 0 and it % rebin_every == 0:
-            ps = loss_pair_structure(gm, qt[0], qt[1], cam, with_world8=True)
+        if use_rebin and it > 0 and it % rebin_every == 0:
+            ps = loss_pair_structure(gm, qt[0], qt[1], cam, with_world16=True)
         q = qt[0].requires_grad_(True)
         t = qt[1].requires_grad_(True)
         loss, aux = get_loss(gm, q, t, color, depth_gt, cam, pcfg, True, False, ps)
@@ -223,49 +239,57 @@ def _prune_mask(logit_op, log_scales, active, it: int, scene_radius: float,
     return active & ~to_remove
 
 
+MAP_PARAMS = ("means3d", "rgb_colors", "unnorm_rotations", "logit_opacities", "log_scales")
+
+
 def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs, iter_ts,
                   scene_radius: float, cam: Camera, num_iters: int, pcfg: PhaseConfig,
-                  prune_cfg: PruneConfig, lrs: tuple, struct_qs, struct_ts,
-                  iter_struct_idx) -> GaussianMap:
+                  prune_cfg: PruneConfig, lrs: tuple, struct_qs=None, struct_ts=None,
+                  iter_struct_idx=None) -> GaussianMap:
     """Mapping iterations for one frame over keyframes drawn by the host.
 
-    iter_slots / iter_struct_idx: per-iteration keyframe-store slot and row
-    of the distinct-keyframe pose table (struct_qs, struct_ts). The pair
-    structure of every distinct keyframe is built once up front from the
-    phase-start parameters and reused by its iterations. lrs follows the
-    reference's order (means, rgb, rotations, opacities, scales); an
-    isotropic map's rotations take no gradient and stay as they are.
-    Pruning happens before each optimizer step (utils/slam_external.py:
-    167-188)."""
+    iter_slots: per-iteration keyframe-store slot. With a distinct-keyframe
+    pose table (struct_qs, struct_ts) and each iteration's row of it
+    (iter_struct_idx), the pair structure of every distinct keyframe is
+    built once up front from the phase-start parameters and reused by its
+    iterations; without one, every iteration bins anew. lrs follows the
+    reference's order (MAP_PARAMS); an isotropic map's rotations never
+    enter a render, so they take no step and stay as they are. Pruning
+    happens before each optimizer step (utils/slam_external.py:167-188)."""
     gm = GaussianMap(*(a.detach() for a in gm))
-    structs = [loss_pair_structure(gm, sq, st_, cam) for sq, st_ in zip(struct_qs, struct_ts)]
-    params = (gm.means3d, gm.rgb_colors, gm.logit_opacities, gm.log_scales)
-    plrs = (lrs[0], lrs[1], lrs[3], lrs[4])
-    st = optim.adam_init(params)
+    structs = None
+    if struct_qs is not None:
+        structs = [loss_pair_structure(gm, sq, st_, cam) for sq, st_ in zip(struct_qs, struct_ts)]
+    keys = tuple(k for k in MAP_PARAMS if not (gm.isotropic and k == "unnorm_rotations"))
+    plrs = tuple(lrs[MAP_PARAMS.index(k)] for k in keys)
+    params = {k: getattr(gm, k) for k in keys}
+    st = optim.adam_init(tuple(params.values()))
     active = gm.active
     for i in range(num_iters):
         slot = int(iter_slots[i])
         color = kf_colors_u8[slot].to(torch.float32).permute(2, 0, 1) / 255.0
         depth_gt = kf_depths[slot]
-        p = tuple(x.detach().requires_grad_(True) for x in params)
-        gm_i = gm._replace(means3d=p[0], rgb_colors=p[1], logit_opacities=p[2],
-                           log_scales=p[3], active=active)
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        gm_i = gm._replace(**p, active=active)
+        ps = None if structs is None else structs[int(iter_struct_idx[i])]
         loss, _ = get_loss(gm_i, iter_qs[i], iter_ts[i], color, depth_gt, cam, pcfg,
-                           False, True, structs[int(iter_struct_idx[i])])
-        grads = torch.autograd.grad(loss, p)
+                           False, True, ps)
+        grads = torch.autograd.grad(loss, tuple(p.values()))
         if prune_cfg.enabled:
-            active = _prune_mask(params[2], params[3], active, i, scene_radius, prune_cfg)
+            active = _prune_mask(params["logit_opacities"], params["log_scales"], active, i,
+                                 scene_radius, prune_cfg)
             if (prune_cfg.reset_opacities and i > 0
                     and i % prune_cfg.reset_opacities_every == 0
                     and i <= prune_cfg.stop_after):
                 inv_sig = torch.log(torch.tensor(0.01 / 0.99))
-                params = params[:2] + (torch.full_like(params[2], float(inv_sig)),) + params[3:]
+                params["logit_opacities"] = torch.full_like(params["logit_opacities"],
+                                                            float(inv_sig))
                 st = optim.AdamState(m=tuple(torch.zeros_like(x) for x in st.m),
                                      v=tuple(torch.zeros_like(x) for x in st.v),
                                      step=st.step)
-        params, st = optim.adam_step(st, params, grads, plrs, eps=1e-15)
-    return gm._replace(means3d=params[0], rgb_colors=params[1], logit_opacities=params[2],
-                       log_scales=params[3], active=active)
+        new, st = optim.adam_step(st, tuple(params.values()), grads, plrs, eps=1e-15)
+        params = dict(zip(keys, new))
+    return gm._replace(**params, active=active)
 
 
 # ---------------------------------------------------------------------------

@@ -69,7 +69,7 @@ def test_tracking_loss_and_pose_grads_match_jax():
     loss_j, (dq_j, dt_j) = jax.jit(jax.value_and_grad(jloss))((jnp.asarray(Q), jnp.asarray(T)))
 
     q, t = torch.tensor(Q, requires_grad=True), torch.tensor(T, requires_grad=True)
-    ps = steps.loss_pair_structure(tgm, q, t, CAM, with_world8=True)
+    ps = steps.loss_pair_structure(tgm, q, t, CAM, with_world16=True)
     loss, _ = steps.get_loss(tgm, q, t, torch.tensor(color), torch.tensor(depth), CAM,
                              T_TRACK, True, False, ps)
     dq, dt = torch.autograd.grad(loss, (q, t))
@@ -133,7 +133,7 @@ def test_forward_images_match_jax():
 
 def _pair_inputs(tgm, cam):
     q, t = torch.tensor(Q), torch.tensor(T)
-    ps = steps.loss_pair_structure(tgm, q, t, cam, with_world8=True)
+    ps = steps.loss_pair_structure(tgm, q, t, cam, with_world16=True)
     rmat = fused_iso.build_rotation(fused_iso.normalize(q)[None])[0]
     limx, limy = 1.3 * cam.width / (2 * cam.fx), 1.3 * cam.height / (2 * cam.fy)
     pose = fused_iso.make_pose_vec(rmat, t, cam.width, cam.height, cam.fx, cam.fy, cam.cx,

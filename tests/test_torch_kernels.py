@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain PyTorch versions, on the card.
+"""The five CUDA kernels against their plain PyTorch versions, on the card.
 
 Imports no jax, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -10,7 +10,9 @@ largest value: images within 1e-5 and n_contrib exact (the forward
 kernels round like their plain versions; a flipped threshold would move
 a pixel by a whole pair's contribution); per-pair gradients within 1e-4
 (per-pixel terms summed by warp shuffles instead of in pixel order);
-per-Gaussian sums within 1e-5 (the same few terms in another order).
+per-Gaussian sums within 1e-5 (the same few terms in another order), at
+8 and at 11 columns. K1 and K2 on per-pair rows must equal their
+per-Gaussian mode bit for bit (the same kernel reads the same floats).
 """
 import numpy as np
 import pytest
@@ -83,10 +85,65 @@ def test_composite_forward_kernel_matches_plain(cuda):
     _check_image(got, ref)
 
 
+def _generic_inputs(device, seed):
+    """Per-Gaussian attrs and bins of the generic render of an anisotropic
+    map, K1's state and seeded cotangents g [6, H, W]."""
+    gm = _map(device, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    gm = gm._replace(log_scales=torch.tensor(
+        np.log(rng.uniform(0.01, 0.08, (gm.capacity, 3))).astype(np.float32), device=device))
+    proj, aux = api.project_gaussians(CAM, gm.means3d, gm.unnorm_rotations, gm.logit_opacities,
+                                      gm.log_scales, gm.active)
+    b = binning.build_bins(proj, aux, CAM.width, CAM.height)
+    d = proj.depth[:, None]
+    attrs = torch.cat([proj.xy, proj.conic, proj.opacity[:, None], gm.rgb_colors, d, d * d], 1)
+    attrs = attrs.contiguous()
+    state = composite.composite_forward(attrs, b.pair_gauss, b.tile_start, CAM.width, CAM.height)
+    gen = torch.Generator(device).manual_seed(seed)
+    g = torch.randn((6, CAM.height, CAM.width), device=device, generator=gen)
+    return attrs, b, state, g
+
+
+def test_composite_backward_kernel_matches_plain(cuda):
+    attrs, b, state, g = _generic_inputs(cuda, 6)
+    before = composite.composite_backward.launches
+    got = composite.composite_backward(attrs, b.pair_gauss, b.tile_start, CAM.width,
+                                       CAM.height, state, g)
+    torch.cuda.synchronize()
+    assert composite.composite_backward.launches == before + 1
+    ref = composite.composite_backward_plain(attrs, b.pair_gauss, b.tile_start, CAM.width,
+                                             CAM.height, state, g)
+    assert got.shape == (b.n_pairs, 11) and bool(torch.isfinite(got).all())
+    assert _rel(got, ref) <= 1e-4
+
+
+def test_per_pair_mode_equals_per_gaussian_mode(cuda):
+    attrs, b, state, g = _generic_inputs(cuda, 7)
+    rows = attrs[b.pair_gauss.long()].contiguous()
+    w, h = CAM.width, CAM.height
+    assert torch.equal(composite.composite_forward(rows, None, b.tile_start, w, h), state)
+    assert torch.equal(
+        composite.composite_backward(rows, None, b.tile_start, w, h, state, g),
+        composite.composite_backward(attrs, b.pair_gauss, b.tile_start, w, h, state, g))
+
+
+def test_segment_reduce_11_kernel_matches_plain(cuda):
+    attrs, b, state, g = _generic_inputs(cuda, 8)
+    dpair = composite.composite_backward(attrs, b.pair_gauss, b.tile_start, CAM.width,
+                                         CAM.height, state, g)
+    before = composite.segment_reduce.launches[11]
+    got = composite.segment_reduce(dpair, b.dst, b.offsets, b.counts)
+    ref = composite.segment_reduce_plain(dpair, b.dst, b.offsets, b.counts)
+    torch.cuda.synchronize()
+    assert composite.segment_reduce.launches[11] == before + 1
+    assert got.shape == (attrs.shape[0], 11)
+    assert _rel(got, ref) <= 1e-5
+
+
 def test_fused_kernels_match_plain(cuda):
     gm = _map(cuda, seed=1)
     q, t = _pose(cuda)
-    ps = steps.loss_pair_structure(gm, q, t, CAM, with_world8=True)
+    ps = steps.loss_pair_structure(gm, q, t, CAM, with_world16=True)
     rmat = fused_iso.build_rotation(fused_iso.normalize(q)[None])[0]
     geom = fused_iso._geom_for(CAM)
     pose = fused_iso.make_pose_vec(rmat, t, geom[0], geom[1], *geom[2])
@@ -134,7 +191,7 @@ def test_losses_and_gradients_on_card_match_cpu(cuda):
         q, t = _pose(dev)
         q.requires_grad_(True)
         t.requires_grad_(True)
-        ps = steps.loss_pair_structure(gm, q, t, CAM, with_world8=True)
+        ps = steps.loss_pair_structure(gm, q, t, CAM, with_world16=True)
         lt, _ = steps.get_loss(gm, q, t, color.to(dev), depth.to(dev), CAM, pcfg_t, True,
                                False, ps)
         gq, gt = torch.autograd.grad(lt, (q, t))
@@ -162,3 +219,7 @@ def test_wrappers_reject_bad_arguments(cuda):
         fused_iso.fused_forward(w8, pose, ts, CAM.width, CAM.height)
     with pytest.raises(ValueError, match="tile_start"):
         fused_iso.fused_forward(w8.float(), pose, ts[:-1], CAM.width, CAM.height)
+    with pytest.raises(ValueError, match="attrs"):
+        composite.composite_backward(w8.float(), None, ts, CAM.width, CAM.height, None, None)
+    with pytest.raises(ValueError, match="columns"):
+        composite.segment_reduce(torch.zeros((4, 9), device=cuda), ts[:4], ts[:1], ts[:1])

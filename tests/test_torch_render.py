@@ -1,5 +1,6 @@
 """The port's projection, binning, composite forward (K1) and segment
-reduce (K3) against the JAX package, on shared numpy inputs.
+reduce (K3) against the JAX package, on shared numpy inputs (the generic
+render's gradients are in tests/test_torch_generic_render.py).
 
 K1's plain version is held to the Pallas composite forward run under the
 TPU interpreter (as tests/test_pallas_interpret.py runs it) at atol 1e-4,
@@ -11,7 +12,6 @@ order inside each tile, same tile starts. The kernels themselves are held
 to these plain versions in tests/test_torch_kernels.py (CUDA only).
 """
 import numpy as np
-import pytest
 import jax
 import jax.numpy as jnp
 import torch
@@ -107,15 +107,6 @@ def test_composite_forward_plain_matches_pallas_interpret():
     mine = torch.cat([out.im, out.depth[None], out.silhouette[None], out.depth_sq[None]])
     np.testing.assert_allclose(mine.numpy(), ref, atol=1e-4)
     assert out.n_pairs > 0
-
-
-def test_generic_render_refuses_gradients():
-    s = _scene(n=16, seed=3)
-    t = {k: torch.tensor(v) for k, v in s.items()}
-    t["means"].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="composite-backward"):
-        api.render_rgbd_sil(CAM, t["means"], t["rgb"], t["quats"], t["logit"], t["logsc"],
-                            t["active"])
 
 
 def _segments(seed=4, n=300, p=2048):
