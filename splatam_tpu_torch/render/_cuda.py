@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
 The sources are compiled at first use with nvcc into one shared library
-with a plain C interface, loaded with ctypes: `nvcc -gencode
-arch=compute_90a,code=sm_90a -O3 -fmad=false -shared -Xcompiler -fPIC`.
-The library lands in build/splatam_tpu_torch/ under the repository root,
-named by a hash of the sources and flags, so an edited source is rebuilt
-and an unchanged one is not. Every entry point takes raw device pointers and the CUDA stream,
+with a plain C interface, loaded with ctypes: one `nvcc -gencode
+arch=compute_90a,code=sm_90a -O3 -fmad=false -Xcompiler -fPIC -c` per
+source, all started together, then one `nvcc -shared` link. The library
+lands in build/splatam_tpu_torch/ under the repository root, named by a
+hash of the sources and flags, so an edited source is rebuilt and an
+unchanged one is not. Every entry point takes raw device pointers and the CUDA stream,
 launches on that stream and returns the launch's cudaError_t.
 """
 from __future__ import annotations
@@ -27,10 +28,9 @@ BUILD_DIR = _PKG.parent / "build" / "splatam_tpu_torch"
 # -fmad=false: no contraction of a*b+c into one FMA, so the kernels round
 # exactly like their plain versions' separate tensor ops, and the
 # compositing thresholds (alpha < 1/255, T < 1e-4) decide alike in both.
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +42,12 @@ _SIGNATURES = {
     "fused_backward": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "segment_reduce8": [_P, _P, _P, _P, _I, _P, _P],
     "segment_reduce11": [_P, _P, _P, _P, _I, _P, _P],
+    # the fused forward's probe kernels (csrc/fused_probes.cu)
+    "fused_forward2": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "fused_math_only": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "dma_walk1": [_P, _P, _I, _P, _P],
+    "dma_walk2": [_P, _P, _I, _P, _P],
+    "dma_walk4": [_P, _P, _I, _P, _P],
     "last_error_string": [_I],
 }
 
@@ -67,23 +73,44 @@ def library_path() -> Path:
 
 
 def build() -> tuple[Path, float, str]:
-    """Compile the kernels if this source state has no library yet.
-    Returns (library path, build seconds (0 if reused), ptxas report)."""
+    """Compile the kernels if this source state has no library yet: the
+    sources in parallel (the build's time is that of the slowest source,
+    not the sum), then one link. Returns (library path, build seconds (0 if
+    reused), ptxas report). Objects and a partial library are removed
+    whether the build succeeds or fails."""
     lib = library_path()
     log = lib.with_suffix(".log")
     if lib.exists():
         return lib, 0.0, log.read_text() if log.exists() else ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objdir = BUILD_DIR / f"{lib.stem}.{os.getpid()}.obj"
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    objdir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.time()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.time() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    log.write_text(res.stdout + res.stderr)
-    os.replace(tmp, lib)
-    return lib, secs, res.stdout + res.stderr
+    try:
+        jobs = [(src, objdir / f"{src.stem}.o") for src in sorted(CSRC.glob("*.cu"))]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in jobs]
+        report, failed = "", []
+        for (src, _), proc in zip(jobs, procs):
+            out, _ = proc.communicate()
+            report += out
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode})")
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{report}")
+        res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                              *(str(obj) for _, obj in jobs)], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        secs = time.time() - t0
+        log.write_text(report)
+        os.replace(tmp, lib)
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
+        tmp.unlink(missing_ok=True)
+    return lib, secs, report
 
 
 @functools.cache

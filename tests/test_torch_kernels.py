@@ -1,4 +1,4 @@
-"""The five CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Imports no jax, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -13,6 +13,10 @@ a pixel by a whole pair's contribution); per-pair gradients within 1e-4
 per-Gaussian sums within 1e-5 (the same few terms in another order), at
 8 and at 11 columns. K1 and K2 on per-pair rows must equal their
 per-Gaussian mode bit for bit (the same kernel reads the same floats).
+The fused forward's probe kernels run on the probe scripts' map at 64x48
+(~500 pairs per tile): fwd2 must equal K4 bit for bit, math_only its
+plain version as an image, and the dma walks their plain lane sums within
+1e-5 per lane (the same float32 sums in another order).
 """
 import numpy as np
 import pytest
@@ -20,7 +24,8 @@ import torch
 
 from splatam_tpu_torch.core.camera import Camera
 from splatam_tpu_torch.core.gaussians import GaussianMap
-from splatam_tpu_torch.render import api, binning, composite, fused_iso
+from splatam_tpu_torch.render import api, binning, composite, fused_iso, probes
+from splatam_tpu_torch.scripts import scene
 from splatam_tpu_torch.slam import steps
 
 pytestmark = pytest.mark.cuda
@@ -223,3 +228,34 @@ def test_wrappers_reject_bad_arguments(cuda):
         composite.composite_backward(w8.float(), None, ts, CAM.width, CAM.height, None, None)
     with pytest.raises(ValueError, match="columns"):
         composite.segment_reduce(torch.zeros((4, 9), device=cuda), ts[:4], ts[:1], ts[:1])
+
+
+@pytest.mark.parametrize("logit", [-2.0, 1.0])
+def test_probe_kernels_match_k4_and_plain(cuda, logit):
+    gm, q, t, cam = scene.synthetic_scene(150_000, 64, 48, logit, cuda)
+    ps, pose = scene.fused_inputs(gm, q, t, cam)
+    w8, ts, w, h = ps.world8, ps.tile_start, cam.width, cam.height
+    assert int((ts[1:] - ts[:-1]).max()) > 4 * probes.C
+    before = (probes.fwd2.launches, probes.math_only.launches, dict(probes.dma_walk.launches))
+    k4 = fused_iso.fused_forward(w8, pose, ts, w, h)
+    assert torch.equal(probes.fwd2(w8, pose, ts, w, h), k4)
+    _check_image(probes.math_only(w8, pose, ts, w, h),
+                 probes.math_only_plain(w8, pose, ts, w, h))
+    for b in probes.DMA_BLOCKS:
+        got = probes.dma_walk(w8, ts, b)
+        assert got.shape == (ts.shape[0] - 1, probes.C)
+        assert _rel(got, probes.dma_walk_plain(w8, ts, b)) <= 1e-5
+    torch.cuda.synchronize()
+    assert probes.fwd2.launches == before[0] + 1 and probes.math_only.launches == before[1] + 1
+    assert all(probes.dma_walk.launches[b] == before[2][b] + 1 for b in probes.DMA_BLOCKS)
+
+
+def test_probe_wrappers_reject_bad_arguments(cuda):
+    ts = torch.zeros(CAM.width // 16 * (CAM.height // 16) + 1, dtype=torch.int32, device=cuda)
+    pose = torch.zeros(24, device=cuda)
+    with pytest.raises(ValueError, match="world8"):
+        probes.fwd2(torch.zeros((4, 7), device=cuda), pose, ts, CAM.width, CAM.height)
+    with pytest.raises(ValueError, match="b: expected"):
+        probes.dma_walk(torch.zeros((4, 8), device=cuda), ts, 3)
+    with pytest.raises(ValueError, match="tile_start"):
+        probes.math_only(torch.zeros((4, 8), device=cuda), pose, ts[:-1], CAM.width, CAM.height)
