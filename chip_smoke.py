@@ -9,8 +9,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      into build/);
   3. each kernel vs its plain PyTorch version on a small seeded scene
      (160x120, 5k Gaussians), K3 at 8 and at 11 columns, K1/K2 on
-     per-pair rows vs their per-Gaussian mode (bit for bit), and the five
-     probe kernels of the fused forward (fwd2 equal to K4 bit for bit);
+     per-pair rows vs their per-Gaussian mode (bit for bit), K3 and K5
+     equal bit for bit across two launches, and the five probe kernels of
+     the fused forward (fwd2 equal to K4 bit for bit);
   4. path 1: the online SLAM loop in bench.py's order on the synthetic
      sequence at 1200x680, 40 tracking / 60 mapping iterations,
      rebin_every=8, window 24, keyframe_every=5, isotropic map (the fused
@@ -22,6 +23,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (index_add_), and every kernel's bound: the larger of its bytes over
      3.35 TB/s and its float32 operations over 67 TFLOP/s
      (splatam_tpu_torch/render/bounds.py), with its share of that bound;
+     K3 and K5 equal bit for bit across two launches, their registers,
+     local (spill) bytes and blocks per SM, the histogram of pairs per
+     Gaussian K3 reduces, and the (pair, warp) steps K5 reduces with the
+     shuffles they take;
   6. one more frame of path 1 under torch.profiler (device activity only):
      its wall time, the device-busy time inside that same frame, and the
      kernels that take the device time;
@@ -100,9 +105,11 @@ PROFILE_N = 950272  # scripts/profile_map_ablate.py:22, about path 1's steady ma
 # the forward kernels round like their plain versions (-fmad=false, NDC
 # terms from the host), so 1e-5 leaves room only for expf/division of two
 # libraries. Per-pair gradients (K5, K2): the 256 per-pixel terms are
-# summed by warp shuffles instead of in pixel order, 1e-4. Per-Gaussian
-# sums (K3 at 8 and 11 columns, and index_add_ beside K3): the same few
-# terms in another order, 1e-5. The probes: fwd2 must equal K4 bit for bit
+# summed by warp shuffles (a reduce-scatter tree in K5, a butterfly per
+# column in K2) and then over the 8 warps, instead of in pixel order, 1e-4.
+# Per-Gaussian sums (K3 at 8 and 11 columns, and index_add_ beside K3): K3
+# adds a Gaussian's few rows in slot order, the plain version and
+# index_add_ in another order, 1e-5. The probes: fwd2 must equal K4 bit for bit
 # (the same arithmetic on the same pairs in the same order), and its plain
 # version, math_only's and the lane sums of the dma walks (per lane, the
 # same float32 sums in another order) within 1e-5. The same at every scene.
@@ -110,6 +117,12 @@ TOL = {"composite_forward": 1e-5, "composite_backward": 1e-4, "fused_forward": 1
        "fused_backward": 1e-4, "segment_reduce": 1e-5, "segment_reduce11": 1e-5,
        "fwd2": 1e-5, "dma_only": 1e-5, "dma_b2": 1e-5, "dma_b4": 1e-5, "math_only": 1e-5}
 IMAGES = ("composite_forward", "fused_forward", "fwd2", "math_only")  # n_contrib exact
+# Kernels whose sums have a fixed order: two launches must be equal bit for bit.
+DETERMINISTIC = ("fused_backward", "segment_reduce", "segment_reduce11")
+# K3's and K5's library entries that report what the compiler gave them.
+KERNEL_INFO = {"fused_backward": ("fused_backward_info",),
+               "segment_reduce": ("segment_reduce_info", 8),
+               "segment_reduce11": ("segment_reduce_info", 11)}
 # Per path: the kernels it must launch, and those it must not.
 PATH_KERNELS = {
     "path 1": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
@@ -276,6 +289,42 @@ def check_cases(cases, label: str, equal_to: dict | None = None) -> dict:
     return errs
 
 
+def check_repeat(cases, label: str) -> None:
+    """The DETERMINISTIC kernels launched twice on the same inputs must
+    give results equal bit for bit."""
+    import torch
+
+    for name, kernel, _ in cases:
+        if name in DETERMINISTIC:
+            same = torch.equal(kernel(), kernel())
+            print(f"[{label}] {name}: two launches equal={same}", flush=True)
+            if not same:
+                fail(f"{name} gave two different results on the same inputs ({label})")
+
+
+def report_kernel_info() -> None:
+    """Registers, local (spill) bytes per thread and resident blocks per SM
+    of K3 and K5, from the CUDA runtime (render/_cuda.kernel_info)."""
+    from splatam_tpu_torch.render import _cuda
+
+    for name, (entry, *args) in KERNEL_INFO.items():
+        info = _cuda.kernel_info(entry, *args)
+        print(f"kernel {name}: {info.registers} registers, {info.local_bytes} local bytes per "
+              f"thread, {info.blocks_per_sm} blocks of its launch per SM", flush=True)
+
+
+def count_histogram(counts, label: str) -> None:
+    """The share of Gaussians with 0, 1, 2, 3-4, 5-32 and > 32 pairs (the
+    work of K3's lane groups), and the largest count."""
+    c = counts.long()
+    n = max(c.numel(), 1)
+    bins = (("0", c == 0), ("1", c == 1), ("2", c == 2), ("3-4", (c >= 3) & (c <= 4)),
+            ("5-32", (c >= 5) & (c <= 32)), (">32", c > 32))
+    shares = ", ".join(f"{k}: {100.0 * int(m.sum()) / n:.2f}%" for k, m in bins)
+    print(f"pairs per Gaussian ({label}, {c.numel()} Gaussians, {int(c.sum())} pairs): "
+          f"{shares}; max {int(c.max()) if c.numel() else 0}", flush=True)
+
+
 def time_turns(cases) -> dict:
     """Kernel and plain ms of each case, in turns plain, kernel, kernel,
     plain (one card, one call); the smaller of each pair. The plain calls
@@ -323,7 +372,7 @@ def kernel_work(x) -> dict:
     input read once, each output written once (the backward kernels read
     two rows of the forward's state); the walks' evaluations counted by the
     plain walk (render/bounds.py). K5 needs each staged pair's projection
-    and its chain to world once (the kernel projects twice: counted once)."""
+    and its chain to world once."""
     from splatam_tpu_torch.render import bounds as B
     from splatam_tpu_torch.render import fused_iso
 
@@ -333,6 +382,10 @@ def kernel_work(x) -> dict:
     xy, conic, op, _ = fused_iso.project_pairs_plain(ps.world8, x.pose, x.w, x.h)
     fus = B.walk_counts(xy, conic, op, ps.tile_start, x.w, x.h)
     print(f"walk counts: generic {gen}\nwalk counts: fused {fus}", flush=True)
+    print(f"K5 reduction: {fus.bwd_warp_steps} (pair, warp) steps with a contributing lane; "
+          f"{55 * fus.bwd_warp_steps / 1e6:.1f}M warp shuffles at 55 a step (a butterfly per "
+          f"column), {16 * fus.bwd_warp_steps / 1e6:.1f}M at 16 (the reduce-scatter)",
+          flush=True)
 
     def k3(dpair, s):
         return (B.nbytes(dpair, s.dst, s.offsets, s.counts) + s.counts.numel() * dpair.shape[1] * 4,
@@ -601,6 +654,7 @@ def main() -> None:
     x = kernel_inputs(gm, q, t, cam, seed=1)
     label = "160x120, 5k Gaussians"
     check_cases(kernel_cases(x), label)
+    check_repeat(kernel_cases(x), label)
     check_pair_mode(x, label)
     check_cases(probe_cases(x.ps, x.pose, x.w, x.h), label, equal_to={
         "fwd2": lambda: fused_iso.fused_forward(x.ps.world8, x.pose, x.ps.tile_start, x.w, x.h)})
@@ -620,7 +674,11 @@ def main() -> None:
     label = f"{WIDTH}x{HEIGHT}, {span} Gaussians"
     cases = kernel_cases(x)
     errs = check_cases(cases, label)
+    check_repeat(cases, label)
     check_pair_mode(x, label)
+    report_kernel_info()
+    count_histogram(x.ps.counts, "fused path, K3 at 8 columns")
+    count_histogram(x.b.counts, "generic render, K3 at 11 columns")
     times = time_turns(cases)
     library = library_k3(x)
     bounds = report_bounds(kernel_work(x), times, label)

@@ -15,6 +15,19 @@ constexpr float T_EPS = 1e-4f;
 constexpr float NEAR_CLIP = 0.2f;
 constexpr unsigned FULL = 0xffffffffu;
 
+// What the compiler gave a kernel: registers and local (spill) bytes per
+// thread, and the blocks of `threads` threads resident on one SM (its static
+// shared memory included). Returns a cudaError_t.
+inline int kernel_info(const void* fn, int threads, int* regs, int* local_bytes,
+                       int* blocks_per_sm) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *local_bytes = int(a.localSizeBytes);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, threads, 0);
+}
+
 // Pose vector layout (fused_iso.make_pose_vec): R row-major, t, fx, fy, cx,
 // cy, limx, limy, then the NDC terms ax, bx, ay, by computed on the host.
 struct Pose {

@@ -18,13 +18,14 @@
 // per-pair reduction over the tile's 256 pixels. The TPU kernel turns the walk
 // into log-space triangular matmuls and a pixel-moment contraction on the MXU;
 // here the walk stays sequential per pixel, as in K5 (fused_backward.cu),
-// which is this kernel plus the in-kernel projection. Design: one block per
-// tile, one thread per pixel, pairs staged 32 at a time in shared memory (one
-// row per thread). Each pair slot belongs to exactly one tile, so its gradient
-// is a reduction inside the block: the pixel terms are summed with warp
-// shuffles (skipped when no lane of the warp touched the pair), the eight warp
-// partials in shared memory, and one thread per pair makes one plain store
-// per column. No global atomics; the result is deterministic.
+// which adds the in-kernel projection and reduces each pair's terms with a
+// reduce-scatter instead of this kernel's butterfly per column. Design: one
+// block per tile, one thread per pixel, pairs staged 32 at a time in shared
+// memory (one row per thread). Each pair slot belongs to exactly one tile,
+// so its gradient is a reduction inside the block: the pixel terms are summed
+// with warp shuffles (skipped when no lane of the warp touched the pair), the
+// eight warp partials in shared memory, and one thread per pair makes one
+// plain store per column. No global atomics; the result is deterministic.
 #include "common.cuh"
 
 namespace splatam {

@@ -8,22 +8,44 @@
 // the per-pair gradient is chained through the in-kernel projection to the
 // pair's world row: mean xyz, s^2, opacity, rgb ([P, 8]).
 //
-// What bounds it on an H100: per-pixel latency of the reverse walk and the
-// per-pair reduction over the tile's 256 pixels. Design: one block per tile,
-// one thread per pixel, pairs staged 32 at a time in shared memory (projected
-// once per tile by one thread each). Each pair slot belongs to exactly one
-// tile, so its gradient is a reduction inside the block: the pixel terms are
-// summed with warp shuffles (skipped when no lane of the warp touched the
-// pair), the eight warp partials in shared memory, and one thread per pair
-// chains the screen-space sums through the projection and makes one plain
-// store per slot. No global atomics; the result is deterministic. Slots past
-// the deepest n_contrib of the tile get zeros, so every slot is written.
+// One block per 16x16 tile, one thread per pixel; pairs are staged BB at a
+// time in shared memory, projected once per tile by one thread each. Each
+// pair slot belongs to exactly one tile, so its gradient is a reduction inside
+// the block, with no global atomics.
+//
+// What bounds it on an H100: the per-pixel reverse walk (each evaluation a
+// dependent chain of expf, a division and six suffix updates, as in K4's
+// forward walk) and the per-pair reduction of 11 screen-space terms over the
+// tile's 256 pixels. A shuffle butterfly per column costs 11 x 5 = 55 warp
+// shuffles for every (pair, warp) step in which a lane of the warp applied
+// the pair (an SM retires one warp shuffle per clock), and a batch tail on one
+// thread per pair leaves the rest of the block waiting. Design:
+//   - reduce-scatter: the 11 terms, padded to 16 slots, are summed over the
+//     warp by recursive halving (8 + 4 + 2 + 1 shuffles, then one for the
+//     last lane pair: 16 in all), leaving slot s's warp total in lanes 2s and
+//     2s + 1; a step no lane of the warp contributed to is skipped;
+//   - the even lanes publish the 16 totals with one store, and each warp
+//     keeps a bitmask of the batch's pairs it touched;
+//   - the whole block merges the warp partials, one (pair, column) per
+//     thread, reading only the touching warps, in warp order;
+//   - the projection terms the chain reads are kept in shared memory from the
+//     staging step, so the tail neither reloads the row nor projects again;
+//     one thread per pair chains and stores;
+//   - the pose lives in shared memory, not in every thread's registers.
+// Every sum is taken in a fixed order, so two launches are equal bit for bit.
+// Slots past the deepest n_contrib of the tile get zeros, so every slot is
+// written.
 #include "common.cuh"
 
 namespace splatam {
 
-constexpr int BB = 32;  // pairs per staged batch
+// Pairs per staged batch: 64 halves the barriers of 32 (3-5% faster on an
+// H100). Three resident blocks per SM: ptxas fits the kernel in 80
+// registers with no spills; asking for four caps it at 64 and spills.
+constexpr int BB = 64;
+constexpr int MIN_BLOCKS = 3;
 constexpr int NR = 11;  // screen grads per pair: dpix x/y, conic a/b/c, opacity, 5 channels
+constexpr int NS = 16;  // NR padded to a power of two: the reduce-scatter's slots
 constexpr int WARPS = PIX / 32;
 
 // Chains screen-space sums through the isotropic projection to the world row
@@ -95,16 +117,42 @@ __device__ __forceinline__ void load_row(const float* __restrict__ world8, int i
   w[4] = hi.x; w[5] = hi.y; w[6] = hi.z; w[7] = hi.w;
 }
 
-__global__ void __launch_bounds__(PIX)
+// One step of the reduce-scatter: lanes whose `BIT` is set keep the upper H
+// slots of v[0 .. 2H), the others the lower H, and each adds its xor partner's
+// copy of the half it keeps into v[0 .. H).
+template <int H, int BIT>
+__device__ __forceinline__ void halve(float* v, int lane) {
+  const bool upper = (lane & BIT) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? v[i] : v[i + H];
+    const float keep = upper ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(FULL, send, BIT);
+  }
+}
+
+// Warp sums of v[0 .. NS) by recursive halving (16 shuffles): returns the
+// warp total of slot lane / 2, the same in lanes 2s and 2s + 1.
+__device__ __forceinline__ float reduce_scatter16(float* v, int lane) {
+  halve<8, 16>(v, lane);
+  halve<4, 8>(v, lane);
+  halve<2, 4>(v, lane);
+  halve<1, 2>(v, lane);
+  return v[0] + __shfl_xor_sync(FULL, v[0], 1);
+}
+
+__global__ void __launch_bounds__(PIX, MIN_BLOCKS)
     fused_backward_kernel(const float* __restrict__ world8, const float* __restrict__ pose,
                           const int* __restrict__ tile_start, int grid_x, int width,
                           int height, const float* __restrict__ state,
                           const float* __restrict__ g, float* __restrict__ dpair) {
   __shared__ float s_attr[11][BB];  // xy, conic a/b/c, opacity, r, g, b, z, z^2
-  __shared__ float s_red[WARPS][BB][NR];
+  __shared__ float s_red[WARPS][BB][NS];  // warp totals; s_red[0] then the block's sums
+  __shared__ ProjIso s_q[BB];  // each staged pair's projection, for the chain
+  __shared__ unsigned long long s_touched[WARPS];  // pairs of the batch each warp reduced
+  __shared__ Pose s_pose;
   __shared__ int s_reach;
 
-  const Pose P = load_pose(pose);
   const float fw = float(width), fh = float(height);
   const int tile = blockIdx.x, tid = threadIdx.x;
   const int lx = tid % TILE, ly = tid / TILE;
@@ -126,11 +174,15 @@ __global__ void __launch_bounds__(PIX)
 #pragma unroll
     for (int c = 0; c < 6; ++c) gch[c] = g[c * hw + pix];
   }
-  if (tid == 0) s_reach = 0;
+  if (tid == 0) {
+    s_reach = 0;
+    s_pose = load_pose(pose);
+  }
   __syncthreads();
   atomicMax(&s_reach, nc);
   __syncthreads();
   const int reach = start + s_reach;
+  const Pose& P = s_pose;
 
   const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int i = reach + tid; i < end; i += PIX) {
@@ -139,17 +191,23 @@ __global__ void __launch_bounds__(PIX)
     row[1] = zero4;
   }
 
+  // Suffix accumulators. The silhouette's previous value is a constant 1:
+  // before the first applied pair last_alpha is 0, which gives the same accum.
   float accum[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float last_c[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float last_c[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
   float last_alpha = 0.0f;
 
   for (int bend = reach; bend > start; bend -= BB) {
     const int bstart = max(start, bend - BB);
     const int n = bend - bstart;
+    const int jlim = nc - (bstart - start);  // this pixel applies pairs jj < jlim
+    // Thread tid's slots of s_attr and s_q are read by the previous batch's
+    // walk (done before its merge barrier) and its chain (by this thread).
     if (tid < n) {
       float w[8];
       load_row(world8, bstart + tid, w);
       const ProjIso q = project_iso(w, P, fw, fh);
+      s_q[tid] = q;
       s_attr[0][tid] = q.pix_x;
       s_attr[1][tid] = q.pix_y;
       s_attr[2][tid] = q.conic_a;
@@ -164,12 +222,13 @@ __global__ void __launch_bounds__(PIX)
     }
     __syncthreads();
 
+    unsigned long long touched = 0;
     for (int jj = n - 1; jj >= 0; --jj) {
-      float r[NR];
+      float r[NS];
 #pragma unroll
-      for (int c = 0; c < NR; ++c) r[c] = 0.0f;
+      for (int c = 0; c < NS; ++c) r[c] = 0.0f;
       bool contrib = false;
-      if (bstart + jj - start < nc) {
+      if (jj < jlim) {
         const float dx = (s_attr[0][jj] - ox) - fx;
         const float dy = (s_attr[1][jj] - oy) - fy;
         const float ca = s_attr[2][jj], cb = s_attr[3][jj], cc = s_attr[4][jj];
@@ -187,10 +246,13 @@ __global__ void __launch_bounds__(PIX)
 #pragma unroll
             for (int c = 0; c < 6; ++c) {
               const float val = c < 5 ? s_attr[6 + c][jj] : 1.0f;
-              accum[c] = last_alpha * last_c[c] + (1.0f - last_alpha) * accum[c];
-              last_c[c] = val;
+              const float prev = c < 5 ? last_c[c] : 1.0f;
+              accum[c] = last_alpha * prev + (1.0f - last_alpha) * accum[c];
               dalpha += (val - accum[c]) * gch[c];
-              if (c < 5) r[6 + c] = wgt * gch[c];
+              if (c < 5) {
+                last_c[c] = val;
+                r[6 + c] = wgt * gch[c];
+              }
             }
             dalpha *= T;
             last_alpha = alpha;
@@ -207,38 +269,38 @@ __global__ void __launch_bounds__(PIX)
         }
       }
       if (__any_sync(FULL, contrib)) {
-#pragma unroll
-        for (int c = 0; c < NR; ++c) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) r[c] += __shfl_down_sync(FULL, r[c], off);
-        }
+        const float total = reduce_scatter16(r, lane);
+        if ((lane & 1) == 0) s_red[warp][jj][lane >> 1] = total;
+        touched |= 1ull << jj;
       }
-      if (lane == 0) {
+    }
+    if (lane == 0) s_touched[warp] = touched;
+    __syncthreads();
+
+    // Merge: one (pair, column) per thread, the touching warps in warp order.
+    for (int e = tid; e < n * NR; e += PIX) {
+      const int p = e / NR, c = e - p * NR;
+      float v = 0.0f;
 #pragma unroll
-        for (int c = 0; c < NR; ++c) s_red[warp][jj][c] = r[c];
+      for (int w = 0; w < WARPS; ++w) {
+        if ((s_touched[w] >> p) & 1ull) v += s_red[w][p][c];
       }
+      s_red[0][p][c] = v;
     }
     __syncthreads();
 
     if (tid < n) {
       float s[NR];
 #pragma unroll
-      for (int c = 0; c < NR; ++c) {
-        float v = 0.0f;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) v += s_red[w][tid][c];
-        s[c] = v;
-      }
-      float w[8];
-      load_row(world8, bstart + tid, w);
-      const ProjIso q = project_iso(w, P, fw, fh);
+      for (int c = 0; c < NR; ++c) s[c] = s_red[0][tid][c];
       float d[8];
-      chain_to_world(q, P, fw, fh, s, d);
+      chain_to_world(s_q[tid], P, fw, fh, s, d);
       float4* row = reinterpret_cast<float4*>(dpair + size_t(bstart + tid) * 8);
       row[0] = make_float4(d[0], d[1], d[2], d[3]);
       row[1] = make_float4(d[4], d[5], d[6], d[7]);
     }
-    __syncthreads();
+    // No barrier here: the next batch's writes to s_red and s_touched come
+    // after its staging barrier, and its staging writes only slot tid.
   }
 }
 
@@ -253,4 +315,11 @@ extern "C" int fused_backward(const float* world8, const float* pose, const int*
         world8, pose, tile_start, grid_x, width, height, state, g, dpair);
   }
   return (int)cudaGetLastError();
+}
+
+// What the compiler gave K5: registers and local (spill) bytes per thread,
+// and resident blocks per SM.
+extern "C" int fused_backward_info(int* regs, int* local_bytes, int* blocks_per_sm) {
+  return splatam::kernel_info((const void*)splatam::fused_backward_kernel, splatam::PIX, regs,
+                              local_bytes, blocks_per_sm);
 }

@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +35,7 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-f
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
 # name -> argument types (every function returns int: a cudaError_t)
 _SIGNATURES = {
     "composite_forward_ch5": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
@@ -42,6 +44,9 @@ _SIGNATURES = {
     "fused_backward": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "segment_reduce8": [_P, _P, _P, _P, _I, _P, _P],
     "segment_reduce11": [_P, _P, _P, _P, _I, _P, _P],
+    # what the compiler gave a kernel (registers, local bytes, blocks per SM)
+    "fused_backward_info": [_IP, _IP, _IP],
+    "segment_reduce_info": [_I, _IP, _IP, _IP],
     # the fused forward's probe kernels (csrc/fused_probes.cu)
     "fused_forward2": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "fused_math_only": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
@@ -133,6 +138,23 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = lib().last_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
+
+
+class KernelInfo(NamedTuple):
+    """What the compiler and the runtime give one kernel on this card."""
+
+    registers: int  # per thread
+    local_bytes: int  # local memory per thread (register spills, local arrays)
+    blocks_per_sm: int  # resident blocks of its launch size on one SM
+
+
+def kernel_info(name: str, *args) -> KernelInfo:
+    """KernelInfo from the library's `name` entry, which takes `args` and
+    then the three output pointers (cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor on the device)."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    check(getattr(lib(), name)(*args, *(ctypes.byref(v) for v in vals)), name)
+    return KernelInfo(*(v.value for v in vals))
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:

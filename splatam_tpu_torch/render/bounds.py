@@ -11,7 +11,8 @@ The compositing walks stop early, so their work depends on the data:
 `walk_counts` runs the plain front-to-back walk over the same inputs and
 counts, per pixel inside the image, the pair evaluations up to the pair
 where the walk stops (or the tile's end) and which branch each took. The
-backward walks evaluate each pixel's pairs below its n_contrib.
+backward walks evaluate each pixel's pairs below its n_contrib and apply
+exactly the pairs the forward applied there.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from splatam_tpu_torch.render.composite import (
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+WARP = 32  # pixels of one warp of the backward kernels: two rows of a tile
 
 # Per pair-pixel evaluation of the forward walk (the loop body of
 # composite_tile, common.cuh):
@@ -73,6 +75,10 @@ class WalkCounts(NamedTuple):
     bwd_evals: int  # sum of n_contrib (the backward walks' evaluations)
     bwd_alpha: int  # of those, power <= 0
     bwd_reach: int  # sum over tiles of the deepest n_contrib
+    # (pair, warp) steps of the backward walks in which at least one lane of a
+    # 32-pixel warp (two rows of the tile) applies the pair: the steps whose
+    # per-pair terms a warp reduces with shuffles
+    bwd_warp_steps: int
 
 
 def walk_counts(xy, conic, opacity, tile_start, width: int, height: int) -> WalkCounts:
@@ -90,7 +96,7 @@ def walk_counts(xy, conic, opacity, tile_start, width: int, height: int) -> Walk
     t_cur = torch.ones(shape, dtype=torch.float32, device=device)
     done = ~inside
     stop, n_alpha, ncon, alpha_at_nc = zeros(), zeros(), zeros(), zeros()
-    hits = applied = unclamped = torch.zeros((), dtype=torch.int64, device=device)
+    hits = applied = unclamped = warp_steps = torch.zeros((), dtype=torch.int64, device=device)
     p_last = max(xy.shape[0] - 1, 0)
     for k in range(kmax):
         idx = torch.clamp(starts + k, max=p_last)
@@ -105,6 +111,7 @@ def walk_counts(xy, conic, opacity, tile_start, width: int, height: int) -> Walk
         n_alpha += a_ok
         hits = hits + hit.sum()
         applied = applied + apply.sum()
+        warp_steps = warp_steps + apply.reshape(n_tiles, -1, WARP).any(2).sum()
         unclamped = unclamped + (apply & (alpha_un <= ALPHA_MAX)).sum()
         alpha_at_nc = torch.where(apply, n_alpha, alpha_at_nc)
         ncon = torch.where(apply, k + 1, ncon)
@@ -115,7 +122,8 @@ def walk_counts(xy, conic, opacity, tile_start, width: int, height: int) -> Walk
         applied=int(applied), unclamped=int(unclamped),
         reach=int(stop.amax(1).sum()) if n_tiles else 0,
         bwd_evals=int(ncon.sum()), bwd_alpha=int(alpha_at_nc.sum()),
-        bwd_reach=int(ncon.amax(1).sum()) if n_tiles else 0)
+        bwd_reach=int(ncon.amax(1).sum()) if n_tiles else 0,
+        bwd_warp_steps=int(warp_steps))
 
 
 def forward_walk_ops(wc: WalkCounts) -> int:

@@ -95,7 +95,8 @@ def _sync(device: torch.device) -> None:
 # The port's __global__ functions (csrc/*.cu), as the profiler names them.
 KERNEL_SYMBOLS = ("composite_forward_kernel", "composite_backward_kernel",
                   "fused_forward_kernel", "fused_backward_kernel", "segment_reduce_kernel",
-                  "fused_forward2_kernel", "dma_walk_kernel", "fused_math_only_kernel")
+                  "segment_reduce_half_kernel", "fused_forward2_kernel", "dma_walk_kernel",
+                  "fused_math_only_kernel")
 
 
 def port_launches_seen(events) -> int:

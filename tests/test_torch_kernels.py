@@ -16,7 +16,8 @@ per-Gaussian mode bit for bit (the same kernel reads the same floats).
 The fused forward's probe kernels run on the probe scripts' map at 64x48
 (~500 pairs per tile): fwd2 must equal K4 bit for bit, math_only its
 plain version as an image, and the dma walks their plain lane sums within
-1e-5 per lane (the same float32 sums in another order).
+1e-5 per lane (the same float32 sums in another order). K3 and K5 sum in a
+fixed order: two launches must be equal bit for bit.
 """
 import numpy as np
 import pytest
@@ -259,3 +260,79 @@ def test_probe_wrappers_reject_bad_arguments(cuda):
         probes.dma_walk(torch.zeros((4, 8), device=cuda), ts, 3)
     with pytest.raises(ValueError, match="tile_start"):
         probes.math_only(torch.zeros((4, 8), device=cuda), pose, ts[:-1], CAM.width, CAM.height)
+
+
+@pytest.mark.parametrize("k", composite.SEGMENT_WIDTHS)
+def test_segment_reduce_edge_counts_are_deterministic(cuda, k):
+    """K3 on Gaussians with 0, 1, 2, 33 and 200 pairs, n = 1001 (a multiple
+    of neither lane group), against its plain version and index_add_ within
+    1e-5 per column, and equal bit for bit across two launches; at 8
+    columns also on rows that are not 16-byte aligned (the per-column
+    kernel, same order of sums: equal bit for bit)."""
+    rng = np.random.default_rng(k)
+    counts = np.array([0, 1, 2, 33, 200] * 200 + [3], np.int32)
+    offsets = (np.cumsum(counts) - counts).astype(np.int32)
+    p = int(counts.sum())
+    dst = rng.permutation(p).astype(np.int32)
+    dpair = torch.tensor(rng.normal(size=(p, k)).astype(np.float32), device=cuda)
+    idx = [torch.tensor(x, device=cuda) for x in (dst, offsets, counts)]
+    before = composite.segment_reduce.launches[k]
+    got = composite.segment_reduce(dpair, *idx)
+    again = composite.segment_reduce(dpair, *idx)
+    ref = composite.segment_reduce_plain(dpair, *idx)
+    gid = torch.repeat_interleave(torch.arange(counts.size, device=cuda),
+                                  idx[2].long())[idx[0].long().argsort()]
+    lib = torch.zeros((counts.size, k), device=cuda).index_add_(0, gid, dpair)
+    torch.cuda.synchronize()
+    assert composite.segment_reduce.launches[k] == before + 2
+    assert torch.equal(got, again)
+    assert _rel(got, ref) <= 1e-5 and _rel(lib, got) <= 1e-5
+    assert bool((got[counts == 0] == 0).all())
+    if k == 8:
+        buf = torch.empty(p * k + 1, device=cuda)
+        shifted = buf[1:].view(p, k)
+        shifted.copy_(dpair)
+        assert shifted.data_ptr() % 16
+        assert torch.equal(composite.segment_reduce(shifted, *idx), got)
+
+
+def _deep_scene(device):
+    """152x116 (ragged right and bottom tiles), 20k Gaussians: tiles
+    several 64-pair batches deep whose pixels stop early, so some pairs lie
+    past their tile's deepest n_contrib."""
+    cam = Camera(height=116, width=152, fx=150.0, fy=150.0, cx=76.0, cy=58.0)
+    gm = _map(device, n=20000, seed=9)
+    q, t = _pose(device)
+    ps = steps.loss_pair_structure(gm, q, t, cam, with_world16=True)
+    rmat = fused_iso.build_rotation(fused_iso.normalize(q)[None])[0]
+    geom = fused_iso._geom_for(cam)
+    pose = fused_iso.make_pose_vec(rmat, t, geom[0], geom[1], *geom[2])
+    return cam, ps, pose
+
+
+def test_fused_backward_one_channel_at_a_time(cuda):
+    """K5 with the cotangent in one of the six channels at a time (so a
+    column-to-lane mix-up cannot hide behind a larger column) within 1e-4
+    per column of its plain version, equal bit for bit across two launches,
+    and zeros for every pair past its tile's deepest n_contrib."""
+    cam, ps, pose = _deep_scene(cuda)
+    w, h, ts = cam.width, cam.height, ps.tile_start
+    lens = ts[1:] - ts[:-1]
+    assert int(lens.max()) > 3 * 64
+    state = fused_iso.fused_forward(ps.world8, pose, ts, w, h)
+    reach = composite.to_tiles(state[-1:])[0].amax(1).long()
+    slot = torch.arange(ps.n_pairs, device=cuda)
+    tile_of = torch.repeat_interleave(torch.arange(lens.numel(), device=cuda), lens.long())
+    past = slot - ts[:-1].long()[tile_of] >= reach[tile_of]
+    assert int(past.sum()) > 0
+    gen = torch.Generator(cuda).manual_seed(3)
+    for c in range(6):
+        g = torch.zeros((6, h, w), device=cuda)
+        g[c] = torch.randn((h, w), device=cuda, generator=gen)
+        d = fused_iso.fused_backward(ps.world8, pose, ts, w, h, state, g)
+        again = fused_iso.fused_backward(ps.world8, pose, ts, w, h, state, g)
+        ref = fused_iso.fused_backward_plain(ps.world8, pose, ts, w, h, state, g)
+        torch.cuda.synchronize()
+        assert torch.equal(d, again), f"channel {c}: two launches differ"
+        assert _rel(d, ref) <= 1e-4, f"channel {c}"
+        assert bool((d[past] == 0).all()), f"channel {c}: a pair past the reach is not 0"
