@@ -9,9 +9,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      into build/);
   3. each kernel vs its plain PyTorch version on a small seeded scene
      (160x120, 5k Gaussians), K3 at 8 and at 11 columns, K1/K2 on
-     per-pair rows vs their per-Gaussian mode (bit for bit), K3 and K5
-     equal bit for bit across two launches, and the five probe kernels of
-     the fused forward (fwd2 equal to K4 bit for bit);
+     per-pair rows vs their per-Gaussian mode (bit for bit), K1 equal to
+     its plain version bit for bit, K2, K3 and K5 equal bit for bit across
+     two launches, and the five probe kernels of the fused forward (fwd2
+     equal to K4 bit for bit);
   4. path 1: the online SLAM loop in bench.py's order on the synthetic
      sequence at 1200x680, 40 tracking / 60 mapping iterations,
      rebin_every=8, window 24, keyframe_every=5, isotropic map (the fused
@@ -23,10 +24,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (index_add_), and every kernel's bound: the larger of its bytes over
      3.35 TB/s and its float32 operations over 67 TFLOP/s
      (splatam_tpu_torch/render/bounds.py), with its share of that bound;
-     K3 and K5 equal bit for bit across two launches, their registers,
-     local (spill) bytes and blocks per SM, the histogram of pairs per
-     Gaussian K3 reduces, and the (pair, warp) steps K5 reduces with the
-     shuffles they take;
+     K1 equal to its plain version bit for bit, K2, K3 and K5 equal bit
+     for bit across two launches, the registers, local (spill) bytes and
+     blocks per SM of K1, K2, K3 and K5, the histogram of pairs per
+     Gaussian K3 reduces, the (pair, warp) steps K5 reduces with the
+     shuffles they take, and for K1 and K2 the (pair, warp) steps their
+     walks need, those their cull keeps and those a walk with no cull
+     visits;
   6. one more frame of path 1 under torch.profiler (device activity only):
      its wall time, the device-busy time inside that same frame, and the
      kernels that take the device time;
@@ -35,7 +39,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
      1, then one more frame profiled like phase 6;
   8. path 3: the same loop on an anisotropic map at rebin_every=8
      (pair-space world-16 tracking, generic mapping with reused
-     structures), checked like path 1;
+     structures), checked like path 1; then K1 and K2 on that map's
+     per-pair rows at the last pose (the inputs this path gives them)
+     against their plain versions, K2 twice, with their times, bounds and
+     the cull's step counts, and once more with ill-conditioned,
+     indefinite and transparent rows mixed in (the cull's other branches);
   9. the probes, at opacity logits -2.0 and 1.0: one structure of the JAX
      probes' map (1,272,155 Gaussians at 1200x680) goes through the runs
      of `probe_unroll` and `probe_dma` (splatam_tpu_torch/scripts, what
@@ -104,9 +112,11 @@ PROFILE_N = 950272  # scripts/profile_map_ablate.py:22, about path 1's steady ma
 # plain version within TOL of that row's own largest value. Images:
 # the forward kernels round like their plain versions (-fmad=false, NDC
 # terms from the host), so 1e-5 leaves room only for expf/division of two
-# libraries. Per-pair gradients (K5, K2): the 256 per-pixel terms are
-# summed by warp shuffles (a reduce-scatter tree in K5, a butterfly per
-# column in K2) and then over the 8 warps, instead of in pixel order, 1e-4.
+# libraries; K1 must equal its plain version bit for bit besides.
+# Per-pair gradients (K5, K2): the 256 per-pixel terms are summed by warp
+# shuffles (in both the reduce-scatter tree of reduce_scatter16: lanes
+# halved by xor 16, 8, 4, 2, 1) and then over the warps that touched the
+# pair, in warp order, instead of in pixel order, 1e-4.
 # Per-Gaussian sums (K3 at 8 and 11 columns, and index_add_ beside K3): K3
 # adds a Gaussian's few rows in slot order, the plain version and
 # index_add_ in another order, 1e-5. The probes: fwd2 must equal K4 bit for bit
@@ -117,10 +127,13 @@ TOL = {"composite_forward": 1e-5, "composite_backward": 1e-4, "fused_forward": 1
        "fused_backward": 1e-4, "segment_reduce": 1e-5, "segment_reduce11": 1e-5,
        "fwd2": 1e-5, "dma_only": 1e-5, "dma_b2": 1e-5, "dma_b4": 1e-5, "math_only": 1e-5}
 IMAGES = ("composite_forward", "fused_forward", "fwd2", "math_only")  # n_contrib exact
+BIT_EQUAL_TO_PLAIN = ("composite_forward",)  # every row, not only n_contrib
 # Kernels whose sums have a fixed order: two launches must be equal bit for bit.
-DETERMINISTIC = ("fused_backward", "segment_reduce", "segment_reduce11")
-# K3's and K5's library entries that report what the compiler gave them.
-KERNEL_INFO = {"fused_backward": ("fused_backward_info",),
+DETERMINISTIC = ("composite_backward", "fused_backward", "segment_reduce", "segment_reduce11")
+# The library entries that report what the compiler gave K1, K2, K3 and K5.
+KERNEL_INFO = {"composite_forward": ("composite_forward_info",),
+               "composite_backward": ("composite_backward_info",),
+               "fused_backward": ("fused_backward_info",),
                "segment_reduce": ("segment_reduce_info", 8),
                "segment_reduce11": ("segment_reduce_info", 11)}
 # Per path: the kernels it must launch, and those it must not.
@@ -274,6 +287,10 @@ def check_cases(cases, label: str, equal_to: dict | None = None) -> dict:
             same = torch.equal(got, equal_to[name]())
             ok = ok and same
             extra += f" equal_to_K4={same}"
+        if name in BIT_EQUAL_TO_PLAIN:
+            same = torch.equal(got, ref)
+            ok = ok and same
+            extra += f" equal_to_plain={same}"
         if name in IMAGES:
             moved = int((got[-1] != ref[-1]).sum())
             ok = ok and moved == 0
@@ -304,7 +321,7 @@ def check_repeat(cases, label: str) -> None:
 
 def report_kernel_info() -> None:
     """Registers, local (spill) bytes per thread and resident blocks per SM
-    of K3 and K5, from the CUDA runtime (render/_cuda.kernel_info)."""
+    of K1, K2, K3 and K5, from the CUDA runtime (render/_cuda.kernel_info)."""
     from splatam_tpu_torch.render import _cuda
 
     for name, (entry, *args) in KERNEL_INFO.items():
@@ -367,6 +384,106 @@ def library_k3(x) -> dict:
     return out
 
 
+def report_cull(wc, label: str) -> None:
+    """How tight K1's and K2's warp cull is on one walk: the (pair, warp)
+    steps the walk needs, those the cull keeps and those a walk with no cull
+    visits. The kept counts are those of the plain rule
+    (composite.cull_rows_plain at composite.WARP_W), which
+    tests/test_torch_bounds.py ties to pair_reach, reach_warp_mask and
+    WARP_W of csrc/common.cuh."""
+    from splatam_tpu_torch.render import composite
+
+    shape = f"{composite.WARP_W}x{32 // composite.WARP_W}"
+    for kernel, need, kept, visited in (
+            ("K1", wc.fwd_warp_steps, wc.fwd_kept_steps, wc.fwd_visited_steps),
+            ("K2", wc.bwd_warp_steps, wc.bwd_kept_steps, wc.bwd_visited_steps)):
+        print(f"{kernel} cull ({label}, warps of {shape} pixels): {need} (pair, warp) steps with "
+              f"a {'hitting' if kernel == 'K1' else 'contributing'} lane, {kept} kept by the "
+              f"cull ({kept / max(need, 1):.3f} x), {visited} with no cull "
+              f"({100.0 * kept / max(visited, 1):.1f}% kept)", flush=True)
+
+
+def pair_row_cases(rows, ts, w: int, h: int, label: str):
+    """K1 and K2 on per-pair rows (no index): prints how the cull treats the
+    rows (bounded box, whole plane, nowhere) and returns (cases as
+    kernel_cases gives them, K1's state, the seeded cotangents, K2's
+    output)."""
+    import torch
+
+    from splatam_tpu_torch.render import composite
+
+    state = composite.composite_forward(rows, None, ts, w, h)
+    gen = torch.Generator(rows.device).manual_seed(3)
+    g = torch.randn((6, h, w), device=rows.device, generator=gen)
+    dpair = composite.composite_backward(rows, None, ts, w, h, state, g)
+    box = composite.cull_rows_plain(rows[:, 0:2], rows[:, 2:5], rows[:, 5], ts, w)
+    plane, nowhere = torch.isinf(box[:, 1]) & (box[:, 1] > 0), box[:, 0] > box[:, 1]
+    print(f"[{label}] the cull's rule: {int((~plane & ~nowhere).sum())} pairs in a bounded box, "
+          f"{int(plane.sum())} the whole plane, {int(nowhere.sum())} nowhere; b != 0 in "
+          f"{int((rows[:, 3] != 0).sum())}", flush=True)
+    cases = [
+        ("composite_forward", lambda: composite.composite_forward(rows, None, ts, w, h),
+         lambda: composite.composite_forward_plain(rows, None, ts, w, h)),
+        ("composite_backward",
+         lambda: composite.composite_backward(rows, None, ts, w, h, state, g),
+         lambda: composite.composite_backward_plain(rows, None, ts, w, h, state, g)),
+    ]
+    return cases, state, g, dpair
+
+
+def check_aniso_pair_rows(rt, frame: int, device) -> None:
+    """K1 and K2 on the inputs path 3 gives them: the anisotropic map's
+    world-16 rows projected per sorted pair at the last tracked pose, full
+    image, no index (conics with b != 0). Both against their plain versions
+    (K1 bit for bit), K2 twice, their times, bounds and the cull's counts.
+    Then the same rows with every 7th conic made ill conditioned, every 11th
+    indefinite (det < 0) and every 13th opacity below 1/255, so that the
+    cull's whole-plane and nowhere branches are held to the plain versions
+    at full size too."""
+    import torch
+
+    from splatam_tpu_torch.render import bounds as B
+    from splatam_tpu_torch.render import composite, pairspace
+    from splatam_tpu_torch.slam import steps
+
+    cam = rt.cam
+    w, h = cam.width, cam.height
+    span = rt.gm.span()
+    view = type(rt.gm)(*(a[:span] for a in rt.gm))
+    q = torch.as_tensor(rt.cam_rots[frame], device=device)
+    t = torch.as_tensor(rt.cam_trans[frame], device=device)
+    ps = steps.loss_pair_structure(view, q, t, cam, with_world16=True)
+    with torch.no_grad():
+        rows = pairspace.project_pairs(ps.world16, q, t, cam.fx, cam.fy, cam.cx, cam.cy,
+                                       w, h).contiguous()
+    ts = ps.tile_start
+    label = f"path 3 per-pair rows, {w}x{h}, {span} Gaussians, {ps.n_pairs} pairs"
+    cases, state, g, dpair = pair_row_cases(rows, ts, w, h, label)
+    check_cases(cases, label)
+    check_repeat(cases, label)
+    times = time_turns([(name, kernel, None) for name, kernel, _ in cases])
+    wc = B.walk_counts(rows[:, 0:2], rows[:, 2:5], rows[:, 5], ts, w, h,
+                       warp_w=composite.WARP_W)
+    print(f"walk counts: path 3 per-pair rows {wc}", flush=True)
+    report_cull(wc, "path 3 per-pair rows")
+    report_bounds({
+        "composite_forward": (B.nbytes(rows, ts, state), B.forward_walk_ops(wc)),
+        "composite_backward": (B.nbytes(rows, ts, g, dpair) + B.image_rows_bytes(state, 2),
+                               B.backward_walk_ops(wc)),
+    }, times, label)
+
+    hard = rows.clone()
+    i = torch.arange(hard.shape[0], device=device)
+    hard[i % 7 == 0, 2] *= 3e4  # (a + c)^2 > 1e4 det
+    sel = i % 11 == 0
+    hard[sel, 3] = 1.5 * torch.sqrt(hard[sel, 2] * hard[sel, 4])  # b^2 > a c
+    hard[i % 13 == 0, 5] = 0.5 / 255.0
+    label = f"path 3 per-pair rows, hard conics, {w}x{h}, {ps.n_pairs} pairs"
+    cases, *_ = pair_row_cases(hard, ts, w, h, label)
+    check_cases(cases, label)
+    check_repeat(cases, label)
+
+
 def kernel_work(x) -> dict:
     """(bytes, float32 ops) of each SLAM-loop kernel on these inputs: each
     input read once, each output written once (the backward kernels read
@@ -374,11 +491,12 @@ def kernel_work(x) -> dict:
     plain walk (render/bounds.py). K5 needs each staged pair's projection
     and its chain to world once."""
     from splatam_tpu_torch.render import bounds as B
-    from splatam_tpu_torch.render import fused_iso
+    from splatam_tpu_torch.render import composite, fused_iso
 
     ps, b = x.ps, x.b
     a = x.attrs[b.pair_gauss.long()]
-    gen = B.walk_counts(a[:, 0:2], a[:, 2:5], a[:, 5], b.tile_start, x.w, x.h)
+    gen = B.walk_counts(a[:, 0:2], a[:, 2:5], a[:, 5], b.tile_start, x.w, x.h,
+                        warp_w=composite.WARP_W)
     xy, conic, op, _ = fused_iso.project_pairs_plain(ps.world8, x.pose, x.w, x.h)
     fus = B.walk_counts(xy, conic, op, ps.tile_start, x.w, x.h)
     print(f"walk counts: generic {gen}\nwalk counts: fused {fus}", flush=True)
@@ -386,6 +504,7 @@ def kernel_work(x) -> dict:
           f"{55 * fus.bwd_warp_steps / 1e6:.1f}M warp shuffles at 55 a step (a butterfly per "
           f"column), {16 * fus.bwd_warp_steps / 1e6:.1f}M at 16 (the reduce-scatter)",
           flush=True)
+    report_cull(gen, "generic render")
 
     def k3(dpair, s):
         return (B.nbytes(dpair, s.dst, s.offsets, s.counts) + s.counts.numel() * dpair.shape[1] * 4,
@@ -695,6 +814,7 @@ def main() -> None:
 
     rt, launches["path 3"] = drive_path(
         "path 3", bench_config(gaussian_distribution="anisotropic"), FRAMES_GENERIC, device)
+    check_aniso_pair_rows(rt, FRAMES_GENERIC - 1, device)
     del rt
     torch.cuda.empty_cache()
 

@@ -165,4 +165,142 @@ __device__ __forceinline__ void composite_tile(SharedPairs<NCH>& sh, Stage stage
   }
 }
 
+// ---------------------------------------------------------------------------
+// Shared by the composite kernels (K1, K2) and the fused backward (K5).
+// ---------------------------------------------------------------------------
+
+// One step of the reduce-scatter: lanes whose `BIT` is set keep the upper H
+// slots of v[0 .. 2H), the others the lower H, and each adds its xor partner's
+// copy of the half it keeps into v[0 .. H).
+template <int H, int BIT>
+__device__ __forceinline__ void halve(float* v, int lane) {
+  const bool upper = (lane & BIT) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? v[i] : v[i + H];
+    const float keep = upper ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(FULL, send, BIT);
+  }
+}
+
+// Warp sums of v[0 .. 16) by recursive halving (16 shuffles): returns the
+// warp total of slot lane / 2, the same in lanes 2s and 2s + 1.
+__device__ __forceinline__ float reduce_scatter16(float* v, int lane) {
+  halve<8, 16>(v, lane);
+  halve<4, 8>(v, lane);
+  halve<2, 4>(v, lane);
+  halve<1, 2>(v, lane);
+  return v[0] + __shfl_xor_sync(FULL, v[0], 1);
+}
+
+// The pixels of a warp of K1 and K2 inside its 16x16 tile: four rows of eight
+// (warp w holds columns 8 (w % 2) .. + 7 of rows 4 (w / 2) .. + 3), which a
+// small round footprint cuts less often than two rows of 16 (measured,
+// PERF.md). WARP_W in render/composite.py is the plain version's copy. The map
+// is private to a kernel: the images stay [C, H, W].
+constexpr int WARP_W = 8;
+struct WarpShape {
+  static constexpr int W = WARP_W, H = 32 / WARP_W;
+  static constexpr int ACROSS = TILE / W;  // warps side by side in a tile
+  __device__ static __forceinline__ int x0(int warp) { return (warp % ACROSS) * W; }
+  __device__ static __forceinline__ int y0(int warp) { return (warp / ACROSS) * H; }
+  __device__ static __forceinline__ int lx(int tid) { return x0(tid >> 5) + (tid & 31) % W; }
+  __device__ static __forceinline__ int ly(int tid) { return y0(tid >> 5) + (tid & 31) / W; }
+};
+
+// The warp-granular cull (plain version: cull_rows_plain and cull_warp_mask in
+// render/composite.py). A pair contributes at a pixel only where power <= 0
+// and opacity * exp(power) >= 1/255, that is where
+//   q = 0.5 (a dx^2 + c dy^2) + b dx dy <= L,  L = ln(255 opacity).
+// For a positive definite conic (a, c, det = a c - b^2 > 0) that ellipse lies
+// in the box |dx| <= sqrt(2 L c / det), |dy| <= sqrt(2 L a / det) around the
+// pair's centre. The walk decides in float32: its q is off by at most a few
+// roundings times the conic's condition number (<= (a + c)^2 / det) relative
+// to q, and expf, the product and dx, dy by a few 1e-7. So the rule is used
+// only while (a + c)^2 <= CULL_MAX_COND det (the walk's q within 0.3% of the
+// exact one), L is widened to 1.01 L + 0.01 and each half width to 1.01 h +
+// 0.01 px: far more than those errors, and seldom a whole pixel. An opacity
+// below 1/255 contributes nowhere (opacity * G <= opacity in float32 too). A
+// pair the rule cannot bound (det <= 0, a or c <= 0, ill conditioned, or not
+// tame: a term that is not finite, or so large that the walk's power could
+// overflow to NaN, which none of its tests skips) gets the whole plane: the
+// cull only skips what the walk skips.
+constexpr float CULL_MAX_COND = 1e4f;
+constexpr float CULL_REL = 1.01f;
+constexpr float CULL_ABS = 0.01f;
+constexpr float CULL_MAX_COORD = 1e6f;  // |centre - tile origin| of a tame pair, pixels
+constexpr float CULL_MAX_TERM = 1e18f;  // |a|, |b|, |c|, |opacity| of a tame pair
+
+// The box, in pixels from the tile's origin, outside which a pair contributes
+// nowhere; x_lo > x_hi where it contributes nowhere at all.
+struct Reach {
+  float x_lo, x_hi, y_lo, y_hi;
+};
+
+__device__ __forceinline__ Reach pair_reach(float rx, float ry, float a, float b, float c,
+                                            float opacity) {
+  const float inf = __int_as_float(0x7f800000);
+  Reach r = {-inf, inf, -inf, inf};
+  const bool tame = fabsf(rx) <= CULL_MAX_COORD && fabsf(ry) <= CULL_MAX_COORD &&
+                    fabsf(a) <= CULL_MAX_TERM && fabsf(b) <= CULL_MAX_TERM &&
+                    fabsf(c) <= CULL_MAX_TERM && fabsf(opacity) <= CULL_MAX_TERM;
+  if (!tame) return r;
+  if (opacity < ALPHA_MIN) {
+    r.x_lo = r.y_lo = inf;
+    r.x_hi = r.y_hi = -inf;
+    return r;
+  }
+  const float det = a * c - b * b, tr = a + c;
+  if (a > 0.0f && c > 0.0f && det > 0.0f && tr * tr <= CULL_MAX_COND * det) {
+    const float L = logf(255.0f * opacity) * CULL_REL + CULL_ABS;
+    const float hx = sqrtf(2.0f * L * c / det) * CULL_REL + CULL_ABS;
+    const float hy = sqrtf(2.0f * L * a / det) * CULL_REL + CULL_ABS;
+    r.x_lo = rx - hx;
+    r.x_hi = rx + hx;
+    r.y_lo = ry - hy;
+    r.y_hi = ry + hy;
+  }
+  return r;
+}
+
+// Bit w is set when warp w of the tile must visit the pair: its pixels'
+// rectangle meets the box. A NaN bound excludes nothing.
+__device__ __forceinline__ unsigned reach_warp_mask(const Reach& r) {
+  using S = WarpShape;
+  unsigned mask = 0;
+#pragma unroll
+  for (int w = 0; w < PIX / 32; ++w) {
+    const float x0 = float(S::x0(w)), y0 = float(S::y0(w));
+    const bool out = r.x_lo > x0 + float(S::W - 1) || r.x_hi < x0 ||
+                     r.y_lo > y0 + float(S::H - 1) || r.y_hi < y0;
+    mask |= out ? 0u : 1u << w;
+  }
+  return mask;
+}
+
+// A pair staged for the composite walks, one 48-byte structure: an evaluation
+// is one 16-byte and one 8-byte broadcast read at one base address, an
+// applied pair two more. rx, ry are the centre minus the tile's origin, the
+// walk's own first subtraction, so dx = rx - lx rounds as (x - ox) - lx does.
+struct __align__(16) StagedPair {
+  float4 geo;  // rx, ry, conic a, conic b
+  float4 chan;  // channels 0-3
+  float2 geo2;  // conic c, opacity
+  float chan4;  // channel 4
+  float pad;
+};
+
+// Stages the 11-column row `a` of one pair and returns the mask of the warps
+// that must visit it.
+__device__ __forceinline__ unsigned stage_pair(StagedPair& s, const float* __restrict__ a,
+                                               float ox, float oy) {
+  const float rx = a[0] - ox, ry = a[1] - oy;
+  const float ca = a[2], cb = a[3], cc = a[4], op = a[5];
+  s.geo = make_float4(rx, ry, ca, cb);
+  s.chan = make_float4(a[6], a[7], a[8], a[9]);
+  s.geo2 = make_float2(cc, op);
+  s.chan4 = a[10];
+  return reach_warp_mask(pair_reach(rx, ry, ca, cb, cc, op));
+}
+
 }  // namespace splatam

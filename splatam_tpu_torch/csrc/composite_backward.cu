@@ -14,52 +14,71 @@
 // pair_gauss (the generic render), or, with a null pair_gauss, one row per
 // sorted pair (the pair-space tracking render).
 //
-// What bounds it on an H100: per-pixel latency of the reverse walk and the
-// per-pair reduction over the tile's 256 pixels. The TPU kernel turns the walk
-// into log-space triangular matmuls and a pixel-moment contraction on the MXU;
-// here the walk stays sequential per pixel, as in K5 (fused_backward.cu),
-// which adds the in-kernel projection and reduces each pair's terms with a
-// reduce-scatter instead of this kernel's butterfly per column. Design: one
-// block per tile, one thread per pixel, pairs staged 32 at a time in shared
-// memory (one row per thread). Each pair slot belongs to exactly one tile,
-// so its gradient is a reduction inside the block: the pixel terms are summed
-// with warp shuffles (skipped when no lane of the warp touched the pair), the
-// eight warp partials in shared memory, and one thread per pair makes one
-// plain store per column. No global atomics; the result is deterministic.
+// What bounds it on an H100: operations, not bytes: the per-pixel reverse walk
+// (each evaluation a dependent chain of expf, a division and six suffix
+// updates), run by every warp for every staged pair though a pair reaches
+// few rows of its tile, and the per-pair reduction of 11 terms over the tile's
+// 256 pixels (an SM retires one warp shuffle per clock). The TPU kernel turns
+// the walk into log-space triangular matmuls and a pixel-moment contraction on
+// the MXU; here the walk stays sequential per pixel. Design (one block per
+// tile, one thread per pixel, a warp four rows of eight pixels (WarpShape,
+// common.cuh), 64 pairs staged per batch, back to front):
+//   - the staging thread computes the warps its pair can reach (pair_reach,
+//     common.cuh, K1's cull) and two ballots per warp of the tile turn the
+//     masks into one 64-bit word per warp: the batch's pairs it must visit,
+//     cut at the deepest n_contrib of its own 32 pixels;
+//   - each warp steps through the set bits of its word from the back (__clzll),
+//     so a pair it cannot reach costs it nothing;
+//   - reduce-scatter (reduce_scatter16, common.cuh, shared with K5): the 11
+//     terms, padded to 16 slots, are summed over the warp in 16 shuffles, in a
+//     step where some lane applied the pair; the even lanes of the first 11
+//     slots publish the totals, and the warp keeps a bitmask of the pairs it
+//     touched;
+//   - the whole block merges the partials of the touching warps in warp order,
+//     one (pair, column) per thread; the merged value is the output, and the
+//     batch's rows are contiguous in dpair, so the merge stores them directly,
+//     coalesced. Two barriers per batch.
+// No global atomics. Every sum is taken in a fixed tree (the lanes' halving
+// order, then the warps in order; a warp that did not touch a pair adds
+// nothing), so two launches are equal bit for bit. The launch bounds ask for
+// four resident blocks per SM: that caps the kernel at 64 registers and spills
+// 32 bytes a thread, and still runs faster than three blocks with no spill
+// (the variants' times are in PERF.md).
 #include "common.cuh"
 
 namespace splatam {
 
-constexpr int BB = 32;  // pairs per staged batch
+constexpr int BB = 64;  // pairs per staged batch: a warp's list is one 64-bit word
+constexpr int NCH = 5;  // the AoS staging holds exactly five channels
+constexpr int NA = 6 + NCH;  // attribute columns = gradient columns
+constexpr int NS = 16;  // NA padded to a power of two: the reduce-scatter's slots
 constexpr int WARPS = PIX / 32;
 
-template <int NCH>
-__global__ void __launch_bounds__(PIX)
+__global__ void __launch_bounds__(PIX, 4)
     composite_backward_kernel(const float* __restrict__ attrs, const int* __restrict__ pair_gauss,
                               const int* __restrict__ tile_start, int grid_x, int width,
                               int height, const float* __restrict__ state,
                               const float* __restrict__ g, float* __restrict__ dpair) {
-  constexpr int NA = 6 + NCH;  // attribute columns = gradient columns
-  __shared__ float s_attr[NA][BB];
-  __shared__ float s_red[WARPS][BB][NA];
+  __shared__ StagedPair sh[BB];
+  __shared__ float s_red[WARPS][BB * NA];  // warp totals, [pair][column]
+  __shared__ unsigned s_words[WARPS][2];  // per warp: the staged pairs its pixels can reach
+  __shared__ unsigned long long s_touched[WARPS];  // pairs of the batch each warp reduced
   __shared__ int s_reach;
 
   const int tile = blockIdx.x, tid = threadIdx.x;
-  const int lx = tid % TILE, ly = tid / TILE;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int lx = WarpShape::lx(tid), ly = WarpShape::ly(tid);
   const int tx = tile % grid_x, ty = tile / grid_x;
   const int pxi = tx * TILE + lx, pyi = ty * TILE + ly;
   const bool inside = pxi < width && pyi < height;
   const float ox = float(tx * TILE), oy = float(ty * TILE);
   const float fx = float(lx), fy = float(ly);
   const int start = tile_start[tile], end = tile_start[tile + 1];
-  const int warp = tid >> 5, lane = tid & 31;
 
   // T_final = 1 - silhouette: the very float the plain version reconstructs.
   float T = 1.0f;
   int nc = 0;
-  float gch[NCH + 1];  // channel cotangents, then the silhouette's
-#pragma unroll
-  for (int c = 0; c <= NCH; ++c) gch[c] = 0.0f;
+  float gch[NCH + 1] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // channel cotangents, the silhouette's
   if (inside) {
     const size_t hw = size_t(width) * height, pix = size_t(pyi) * width + pxi;
     T = 1.0f - state[NCH * hw + pix];
@@ -67,43 +86,64 @@ __global__ void __launch_bounds__(PIX)
 #pragma unroll
     for (int c = 0; c <= NCH; ++c) gch[c] = g[c * hw + pix];
   }
+  const int warp_nc = __reduce_max_sync(FULL, nc);  // the deepest pair this warp applies
   if (tid == 0) s_reach = 0;
   __syncthreads();
-  atomicMax(&s_reach, nc);
+  if (lane == 0) atomicMax(&s_reach, warp_nc);
   __syncthreads();
   const int reach = start + s_reach;
 
   for (size_t i = size_t(reach) * NA + tid; i < size_t(end) * NA; i += PIX) dpair[i] = 0.0f;
 
-  float accum[NCH + 1], last_c[NCH + 1];
-#pragma unroll
-  for (int c = 0; c <= NCH; ++c) accum[c] = last_c[c] = 0.0f;
+  // Suffix accumulators. The silhouette's previous value is a constant 1:
+  // before the first applied pair last_alpha is 0, which gives the same accum.
+  float accum[NCH + 1] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float last_c[NCH] = {0.f, 0.f, 0.f, 0.f, 0.f};
   float last_alpha = 0.0f;
 
   for (int bend = reach; bend > start; bend -= BB) {
     const int bstart = max(start, bend - BB);
     const int n = bend - bstart;
-    if (tid < n) {
-      const int i = bstart + tid;
-      const size_t row = pair_gauss != nullptr ? size_t(pair_gauss[i]) : size_t(i);
-      const float* a = attrs + row * NA;
+    const int jlim = nc - (bstart - start);  // this pixel applies pairs jj < jlim
+    // The previous batch's walks ended before its merge barrier, so its staged
+    // pairs and lists can be overwritten.
+    if (tid < BB) {
+      unsigned mask = 0;
+      if (tid < n) {
+        const int i = bstart + tid;
+        const size_t row = pair_gauss != nullptr ? size_t(pair_gauss[i]) : size_t(i);
+        mask = stage_pair(sh[tid], attrs + row * NA, ox, oy);
+      }
+      // Staging warp k holds pairs 32k .. 32k + 31: word k of every warp's list.
 #pragma unroll
-      for (int r = 0; r < NA; ++r) s_attr[r][tid] = a[r];
+      for (int w = 0; w < WARPS; ++w) {
+        const unsigned word = __ballot_sync(FULL, (mask >> w) & 1u);
+        if (lane == 0) s_words[w][warp] = word;
+      }
     }
     __syncthreads();
 
-    for (int jj = n - 1; jj >= 0; --jj) {
-      float r[NA];
+    const int wlim = warp_nc - (bstart - start);  // the warp visits pairs jj < wlim
+    unsigned long long bits = s_words[warp][0] | (unsigned long long)s_words[warp][1] << 32;
+    if (wlim < 64) bits &= wlim > 0 ? (1ull << wlim) - 1ull : 0ull;
+    unsigned long long touched = 0;
+    // top(bits) is the deepest listed pair, -1 for an empty list.
+    for (int jj = 63 - __clzll((long long)bits); jj >= 0; jj = 63 - __clzll((long long)bits)) {
+      bits &= ~(1ull << jj);
+      float r[NS];
 #pragma unroll
-      for (int c = 0; c < NA; ++c) r[c] = 0.0f;
+      for (int c = 0; c < NS; ++c) r[c] = 0.0f;
       bool contrib = false;
-      if (bstart + jj - start < nc) {
-        const float dx = (s_attr[0][jj] - ox) - fx;
-        const float dy = (s_attr[1][jj] - oy) - fy;
-        const float ca = s_attr[2][jj], cb = s_attr[3][jj], cc = s_attr[4][jj];
+      if (jj < jlim) {
+        const StagedPair& p = sh[jj];
+        const float4 gq = p.geo;
+        const float2 gq2 = p.geo2;
+        const float dx = gq.x - fx;
+        const float dy = gq.y - fy;
+        const float ca = gq.z, cb = gq.w, cc = gq2.x;
         const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
         if (power <= 0.0f) {
-          const float op = s_attr[5][jj];
+          const float op = gq2.y;
           const float G = expf(power);
           const float alpha_un = op * G;
           const float alpha = fminf(ALPHA_MAX, alpha_un);
@@ -111,14 +151,19 @@ __global__ void __launch_bounds__(PIX)
             contrib = true;
             T = T / (1.0f - alpha);
             const float wgt = alpha * T;
+            const float4 ch = p.chan;
+            const float val[NCH] = {ch.x, ch.y, ch.z, ch.w, p.chan4};
             float dalpha = 0.0f;
 #pragma unroll
             for (int c = 0; c <= NCH; ++c) {
-              const float val = c < NCH ? s_attr[6 + c][jj] : 1.0f;
-              accum[c] = last_alpha * last_c[c] + (1.0f - last_alpha) * accum[c];
-              last_c[c] = val;
-              dalpha += (val - accum[c]) * gch[c];
-              if (c < NCH) r[6 + c] = wgt * gch[c];
+              const float v = c < NCH ? val[c] : 1.0f;
+              const float prev = c < NCH ? last_c[c] : 1.0f;
+              accum[c] = last_alpha * prev + (1.0f - last_alpha) * accum[c];
+              dalpha += (v - accum[c]) * gch[c];
+              if (c < NCH) {
+                last_c[c] = v;
+                r[6 + c] = wgt * gch[c];
+              }
             }
             dalpha *= T;
             last_alpha = alpha;
@@ -135,30 +180,30 @@ __global__ void __launch_bounds__(PIX)
         }
       }
       if (__any_sync(FULL, contrib)) {
-#pragma unroll
-        for (int c = 0; c < NA; ++c) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) r[c] += __shfl_down_sync(FULL, r[c], off);
-        }
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int c = 0; c < NA; ++c) s_red[warp][jj][c] = r[c];
+        const float total = reduce_scatter16(r, lane);
+        const int slot = lane >> 1;
+        if ((lane & 1) == 0 && slot < NA) s_red[warp][jj * NA + slot] = total;
+        touched |= 1ull << jj;
       }
     }
+    if (lane == 0) s_touched[warp] = touched;
     __syncthreads();
 
-    if (tid < n) {
-      float* out = dpair + size_t(bstart + tid) * NA;
+    // Merge and store: one (pair, column) per thread, the touching warps in
+    // warp order; dpair[bstart * NA .. (bstart + n) * NA) is contiguous.
+    float* out = dpair + size_t(bstart) * NA;
+    for (int e = tid; e < n * NA; e += PIX) {
+      const int p = e / NA;
+      float v = 0.0f;
 #pragma unroll
-      for (int c = 0; c < NA; ++c) {
-        float v = 0.0f;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) v += s_red[w][tid][c];
-        out[c] = v;
+      for (int w = 0; w < WARPS; ++w) {
+        if ((s_touched[w] >> p) & 1ull) v += s_red[w][e];
       }
+      out[e] = v;
     }
-    __syncthreads();
+    // No barrier here: the next batch's walks, which write s_red and
+    // s_touched, start after its staging barrier, which every thread reaches
+    // only after its part of this merge.
   }
 }
 
@@ -170,8 +215,15 @@ extern "C" int composite_backward_ch5(const float* attrs, const int* pair_gauss,
                                       float* dpair, void* stream) {
   const int tiles = grid_x * grid_y;
   if (tiles > 0) {
-    splatam::composite_backward_kernel<5><<<tiles, splatam::PIX, 0, (cudaStream_t)stream>>>(
+    splatam::composite_backward_kernel<<<tiles, splatam::PIX, 0, (cudaStream_t)stream>>>(
         attrs, pair_gauss, tile_start, grid_x, width, height, state, g, dpair);
   }
   return (int)cudaGetLastError();
+}
+
+// What the compiler gave K2: registers and local (spill) bytes per thread,
+// and resident blocks per SM.
+extern "C" int composite_backward_info(int* regs, int* local_bytes, int* blocks_per_sm) {
+  return splatam::kernel_info((const void*)splatam::composite_backward_kernel, splatam::PIX,
+                              regs, local_bytes, blocks_per_sm);
 }

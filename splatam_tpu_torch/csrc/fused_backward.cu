@@ -20,10 +20,11 @@
 // shuffles for every (pair, warp) step in which a lane of the warp applied
 // the pair (an SM retires one warp shuffle per clock), and a batch tail on one
 // thread per pair leaves the rest of the block waiting. Design:
-//   - reduce-scatter: the 11 terms, padded to 16 slots, are summed over the
-//     warp by recursive halving (8 + 4 + 2 + 1 shuffles, then one for the
-//     last lane pair: 16 in all), leaving slot s's warp total in lanes 2s and
-//     2s + 1; a step no lane of the warp contributed to is skipped;
+//   - reduce-scatter (halve and reduce_scatter16, common.cuh, the one copy K2
+//     uses too): the 11 terms, padded to 16 slots, are summed over the warp by
+//     recursive halving (8 + 4 + 2 + 1 shuffles, then one for the last lane
+//     pair: 16 in all), leaving slot s's warp total in lanes 2s and 2s + 1; a
+//     step no lane of the warp contributed to is skipped;
 //   - the even lanes publish the 16 totals with one store, and each warp
 //     keeps a bitmask of the batch's pairs it touched;
 //   - the whole block merges the warp partials, one (pair, column) per
@@ -115,30 +116,6 @@ __device__ __forceinline__ void load_row(const float* __restrict__ world8, int i
   const float4 lo = row[0], hi = row[1];
   w[0] = lo.x; w[1] = lo.y; w[2] = lo.z; w[3] = lo.w;
   w[4] = hi.x; w[5] = hi.y; w[6] = hi.z; w[7] = hi.w;
-}
-
-// One step of the reduce-scatter: lanes whose `BIT` is set keep the upper H
-// slots of v[0 .. 2H), the others the lower H, and each adds its xor partner's
-// copy of the half it keeps into v[0 .. H).
-template <int H, int BIT>
-__device__ __forceinline__ void halve(float* v, int lane) {
-  const bool upper = (lane & BIT) != 0;
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const float send = upper ? v[i] : v[i + H];
-    const float keep = upper ? v[i + H] : v[i];
-    v[i] = keep + __shfl_xor_sync(FULL, send, BIT);
-  }
-}
-
-// Warp sums of v[0 .. NS) by recursive halving (16 shuffles): returns the
-// warp total of slot lane / 2, the same in lanes 2s and 2s + 1.
-__device__ __forceinline__ float reduce_scatter16(float* v, int lane) {
-  halve<8, 16>(v, lane);
-  halve<4, 8>(v, lane);
-  halve<2, 4>(v, lane);
-  halve<1, 2>(v, lane);
-  return v[0] + __shfl_xor_sync(FULL, v[0], 1);
 }
 
 __global__ void __launch_bounds__(PIX, MIN_BLOCKS)

@@ -24,16 +24,20 @@ from splatam_tpu_torch.render.composite import (
     ALPHA_MAX,
     ALPHA_MIN,
     T_EPS,
+    WARPS,
     _pair_alpha,
     _tile_frame,
+    cull_rows_plain,
+    cull_warp_mask,
+    warp_pixels,
 )
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-WARP = 32  # pixels of one warp of the backward kernels: two rows of a tile
 
 # Per pair-pixel evaluation of the forward walk (the loop body of
-# composite_tile, common.cuh):
+# composite_tile, common.cuh, which K1's composite_pair repeats on a pair
+# staged relative to the tile's origin):
 EVAL_OPS = 13  # dx, dy, power, the power > 0 test
 ALPHA_OPS = 4  # expf, opacity * G, the 0.99 clamp, the 1/255 test (power <= 0)
 HIT_OPS = 3  # T * (1 - alpha), the T < 1e-4 test (alpha >= 1/255)
@@ -50,10 +54,11 @@ CHAIN_OPS = 138  # chain_to_world (fused_backward.cu)
 # The device functions (csrc/ file, name) each count was made from; the
 # tests pin those functions' text, so an edit to one asks for a recount.
 OP_SOURCES = {
-    "EVAL_OPS": (("common.cuh", "composite_tile"),),
-    "ALPHA_OPS": (("common.cuh", "composite_tile"),),
-    "HIT_OPS": (("common.cuh", "composite_tile"),),
-    "APPLY_OPS": (("common.cuh", "composite_tile"),),
+    "EVAL_OPS": (("common.cuh", "composite_tile"), ("composite_forward.cu", "composite_pair"),
+                 ("common.cuh", "stage_pair")),
+    "ALPHA_OPS": (("common.cuh", "composite_tile"), ("composite_forward.cu", "composite_pair")),
+    "HIT_OPS": (("common.cuh", "composite_tile"), ("composite_forward.cu", "composite_pair")),
+    "APPLY_OPS": (("common.cuh", "composite_tile"), ("composite_forward.cu", "composite_pair")),
     "BWD_APPLY_OPS": (("composite_backward.cu", "composite_backward_kernel"),
                       ("fused_backward.cu", "fused_backward_kernel")),
     "BWD_UNCLAMPED_OPS": (("composite_backward.cu", "composite_backward_kernel"),
@@ -76,14 +81,27 @@ class WalkCounts(NamedTuple):
     bwd_alpha: int  # of those, power <= 0
     bwd_reach: int  # sum over tiles of the deepest n_contrib
     # (pair, warp) steps of the backward walks in which at least one lane of a
-    # 32-pixel warp (two rows of the tile) applies the pair: the steps whose
+    # 32-pixel warp (warp_w pixels across) applies the pair: the steps whose
     # per-pair terms a warp reduces with shuffles
     bwd_warp_steps: int
+    # (pair, warp) steps of the forward walk in which a lane that has not
+    # stopped finds power <= 0 and alpha >= 1/255: the steps a warp needs
+    fwd_warp_steps: int
+    # (pair, warp) steps the kernels' cull (composite.cull_rows_plain) keeps:
+    # forward, while a lane of the warp has not stopped; backward, below the
+    # deepest n_contrib of the warp's pixels
+    fwd_kept_steps: int
+    bwd_kept_steps: int
+    # (pair, warp) steps with no cull: the same limits, every staged pair
+    fwd_visited_steps: int
+    bwd_visited_steps: int
 
 
-def walk_counts(xy, conic, opacity, tile_start, width: int, height: int) -> WalkCounts:
+def walk_counts(xy, conic, opacity, tile_start, width: int, height: int,
+                warp_w: int = 16) -> WalkCounts:
     """Counts of composite_pairs_plain's walk over per-pair xy [P, 2],
-    conic [P, 3], opacity [P] (same decisions, same order)."""
+    conic [P, 3], opacity [P] (same decisions, same order). The warp steps
+    group a tile's pixels into warps warp_w across (composite.warp_pixels)."""
     n_tiles = tile_start.shape[0] - 1
     device = xy.device
     ox, oy, lx, ly = _tile_frame(tile_start, width)
@@ -96,7 +114,12 @@ def walk_counts(xy, conic, opacity, tile_start, width: int, height: int) -> Walk
     t_cur = torch.ones(shape, dtype=torch.float32, device=device)
     done = ~inside
     stop, n_alpha, ncon, alpha_at_nc = zeros(), zeros(), zeros(), zeros()
-    hits = applied = unclamped = warp_steps = torch.zeros((), dtype=torch.int64, device=device)
+    hits = applied = unclamped = torch.zeros((), dtype=torch.int64, device=device)
+    steps = torch.zeros(3, dtype=torch.int64, device=device)  # applying, hitting, live warps
+    fwd_kept = hits
+    lanes = warp_pixels(warp_w, device)  # [8, 32] pixels of each warp
+    # [P, 8]: the warps of its tile that must visit each pair under the cull
+    keep = cull_warp_mask(cull_rows_plain(xy, conic, opacity, tile_start, width), warp_w)
     p_last = max(xy.shape[0] - 1, 0)
     for k in range(kmax):
         idx = torch.clamp(starts + k, max=p_last)
@@ -111,19 +134,31 @@ def walk_counts(xy, conic, opacity, tile_start, width: int, height: int) -> Walk
         n_alpha += a_ok
         hits = hits + hit.sum()
         applied = applied + apply.sum()
-        warp_steps = warp_steps + apply.reshape(n_tiles, -1, WARP).any(2).sum()
+        by_warp = torch.stack([apply, hit, ev])[:, :, lanes].any(3)  # [3, T, 8]
+        steps = steps + by_warp.sum((1, 2))
+        fwd_kept = fwd_kept + (by_warp[2] & keep[idx]).sum()
         unclamped = unclamped + (apply & (alpha_un <= ALPHA_MAX)).sum()
         alpha_at_nc = torch.where(apply, n_alpha, alpha_at_nc)
         ncon = torch.where(apply, k + 1, ncon)
         t_cur = torch.where(apply, test_t, t_cur)
         done = done | term
+    # The backward walks: warp w of a tile visits the pairs below the deepest
+    # n_contrib of its pixels.
+    warp_nc = ncon[:, lanes].amax(2) if n_tiles else ncon.reshape(0, WARPS)
+    tile_of = torch.repeat_interleave(torch.arange(n_tiles, device=device), lens,
+                                      output_size=xy.shape[0])
+    depth = torch.arange(xy.shape[0], device=device) - starts[tile_of]  # a pair's place in its tile
+    bwd_kept = (keep & (depth[:, None] < warp_nc[tile_of])).sum()
+    bwd_steps, fwd_steps, fwd_visited = steps.tolist()
     return WalkCounts(
         evals=int(stop.sum()), alpha=int(n_alpha.sum()), hits=int(hits),
         applied=int(applied), unclamped=int(unclamped),
         reach=int(stop.amax(1).sum()) if n_tiles else 0,
         bwd_evals=int(ncon.sum()), bwd_alpha=int(alpha_at_nc.sum()),
         bwd_reach=int(ncon.amax(1).sum()) if n_tiles else 0,
-        bwd_warp_steps=int(warp_steps))
+        bwd_warp_steps=bwd_steps, fwd_warp_steps=fwd_steps,
+        fwd_kept_steps=int(fwd_kept), bwd_kept_steps=int(bwd_kept),
+        fwd_visited_steps=fwd_visited, bwd_visited_steps=int(warp_nc.sum()))
 
 
 def forward_walk_ops(wc: WalkCounts) -> int:

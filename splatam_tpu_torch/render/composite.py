@@ -77,12 +77,100 @@ def _pair_alpha(xy, conic, opacity, idx, ox, oy, lx, ly):
     return dx, dy, power, gval, alpha_un, alpha, skip
 
 
+# ---------------------------------------------------------------------------
+# The warp-granular cull of K1 and K2 (pair_reach and reach_warp_mask in
+# csrc/common.cuh), in plain PyTorch
+# ---------------------------------------------------------------------------
+
+WARPS = PIX // 32
+WARP_W = 8  # pixels across one warp of K1 and K2 (WARP_W in csrc/common.cuh): four rows of 8
+CULL_MAX_COND = 1e4  # the rule holds while (a + c)^2 <= CULL_MAX_COND * det
+CULL_REL = 1.01  # L and each half width are widened by this factor ...
+CULL_ABS = 0.01  # ... and this much (in L's units, in pixels)
+CULL_MAX_COORD = 1e6  # a tame pair: |centre - tile origin| at most this many pixels ...
+CULL_MAX_TERM = 1e18  # ... and |a|, |b|, |c|, |opacity| at most this (no overflow in power)
+
+
+def cull_rows_plain(xy, conic, opacity, tile_start, width: int) -> torch.Tensor:
+    """The box of its tile each sorted pair can reach: [P, 4] float32, x_lo,
+    x_hi, y_lo, y_hi in pixels from the tile's origin.
+
+    A pair contributes at a pixel only where power <= 0 and opacity *
+    exp(power) >= 1/255: where 0.5 (a dx^2 + c dy^2) + b dx dy <= L =
+    ln(255 opacity). For a positive definite conic that ellipse lies within
+    |dx| <= sqrt(2 L c / det), |dy| <= sqrt(2 L a / det). L and the half
+    widths are widened (CULL_REL, CULL_ABS) far past the float32 rounding of
+    the walk's own power, which the condition bound CULL_MAX_COND keeps
+    within 0.3% of the exact one. An opacity below 1/255 reaches nothing
+    (lo = inf, hi = -inf); a pair the rule cannot bound (det <= 0, a or
+    c <= 0, ill conditioned, or not tame: a term that is not finite or so
+    large that the walk's power could overflow to NaN, which no test of
+    the walk skips) reaches everything (-inf, inf): the cull may only skip
+    what the walk skips anyway."""
+    gx, _ = grid_shape(width, 1)
+    lens = (tile_start[1:] - tile_start[:-1]).long()
+    tile = torch.repeat_interleave(torch.arange(lens.numel(), device=xy.device), lens,
+                                   output_size=xy.shape[0])
+    rx = xy[:, 0] - ((tile % gx) * TILE).to(torch.float32)
+    ry = xy[:, 1] - ((tile // gx) * TILE).to(torch.float32)
+    a, b, c = conic[:, 0], conic[:, 1], conic[:, 2]
+    det, tr = a * c - b * b, a + c
+    tame = ((rx.abs() <= CULL_MAX_COORD) & (ry.abs() <= CULL_MAX_COORD)
+            & (a.abs() <= CULL_MAX_TERM) & (b.abs() <= CULL_MAX_TERM)
+            & (c.abs() <= CULL_MAX_TERM) & (opacity.abs() <= CULL_MAX_TERM))
+    bounded = (tame & (a > 0.0) & (c > 0.0) & (det > 0.0)
+               & (tr * tr <= CULL_MAX_COND * det))
+    log_l = torch.log(255.0 * opacity) * CULL_REL + CULL_ABS
+    hx = torch.sqrt(2.0 * log_l * c / det) * CULL_REL + CULL_ABS
+    hy = torch.sqrt(2.0 * log_l * a / det) * CULL_REL + CULL_ABS
+    inf = torch.full_like(rx, float("inf"))
+    box = torch.stack([torch.where(bounded, rx - hx, -inf), torch.where(bounded, rx + hx, inf),
+                       torch.where(bounded, ry - hy, -inf), torch.where(bounded, ry + hy, inf)], 1)
+    nowhere = (tame & (opacity < ALPHA_MIN))[:, None]
+    return torch.where(nowhere, torch.stack([inf, -inf, inf, -inf], 1), box)
+
+
+def warp_pixels(warp_w: int = WARP_W, device=None) -> torch.Tensor:
+    """[8, 32] tile-pixel indices (row-major in the 16x16 tile) of each warp:
+    warp_w = 16 two rows of 16, warp_w = 8 four rows of 8."""
+    warp_h = 32 // warp_w
+    across = TILE // warp_w
+    w = torch.arange(WARPS, device=device)[:, None]
+    lane = torch.arange(32, device=device)[None]
+    lx = (w % across) * warp_w + lane % warp_w
+    ly = (w // across) * warp_h + lane // warp_w
+    return ly * TILE + lx
+
+
+def cull_warp_mask(box: torch.Tensor, warp_w: int = WARP_W) -> torch.Tensor:
+    """[*, 8] bool from box rows [*, 4]: warp w of the pair's tile must visit
+    the pair (its pixels' rectangle meets the box). A NaN bound excludes
+    nothing."""
+    pix = warp_pixels(warp_w, box.device)
+    x0 = (pix[:, 0] % TILE).to(torch.float32)[None]
+    y0 = (pix[:, 0] // TILE).to(torch.float32)[None]
+    x1, y1 = x0 + (warp_w - 1), y0 + (32 // warp_w - 1)
+    x_lo, x_hi, y_lo, y_hi = (box[:, i:i + 1] for i in range(4))
+    return ~((x_lo > x1) | (x_hi < x0) | (y_lo > y1) | (y_hi < y0))
+
+
+def cull_visit(box: torch.Tensor, warp_w: int = WARP_W) -> torch.Tensor:
+    """[*, 256] bool: the pixel's warp visits the pair (cull_warp_mask spread
+    over each warp's pixels)."""
+    warp_of = torch.empty(PIX, dtype=torch.long, device=box.device)
+    warp_of[warp_pixels(warp_w, box.device).reshape(-1)] = torch.arange(
+        WARPS, device=box.device).repeat_interleave(32)
+    return cull_warp_mask(box, warp_w)[:, warp_of]
+
+
 def composite_pairs_plain(xy, conic, opacity, chans, tile_start, width: int,
-                          height: int) -> torch.Tensor:
+                          height: int, cull: int | None = None) -> torch.Tensor:
     """Composite per-pair attributes (pairs sorted by tile, then depth):
     xy [P, 2], conic [P, 3], opacity [P], chans [P, ch] -> [ch + 2, H, W].
 
-    Walks every tile's list in lockstep, one pair index per step."""
+    Walks every tile's list in lockstep, one pair index per step. With
+    `cull` (a warp width, 16 or 8) a pixel skips every pair its warp does
+    not visit under the kernels' cull, which must change nothing."""
     ch = chans.shape[1]
     n_tiles = tile_start.shape[0] - 1
     ox, oy, lx, ly = _tile_frame(tile_start, width)
@@ -95,10 +183,13 @@ def composite_pairs_plain(xy, conic, opacity, chans, tile_start, width: int,
     acc = torch.zeros((ch, n_tiles, PIX), **f32)
     ncon = torch.zeros((n_tiles, PIX), **f32)
     p_last = max(xy.shape[0] - 1, 0)
+    box = None if cull is None else cull_rows_plain(xy, conic, opacity, tile_start, width)
     for k in range(kmax):
         valid = (k < lens)[:, None]
         idx = torch.clamp(starts + k, max=p_last)
         _, _, _, _, _, alpha, skip = _pair_alpha(xy, conic, opacity, idx, ox, oy, lx, ly)
+        if box is not None:
+            skip = skip | ~cull_visit(box[idx], cull)
         live = ~done & ~skip & valid
         test_t = t_cur * (1.0 - alpha)
         term = live & (test_t < T_EPS)
@@ -113,7 +204,8 @@ def composite_pairs_plain(xy, conic, opacity, chans, tile_start, width: int,
 
 
 def composite_pairs_backward_plain(xy, conic, opacity, chans, tile_start, width: int,
-                                   height: int, state, g) -> torch.Tensor:
+                                   height: int, state, g,
+                                   cull: int | None = None) -> torch.Tensor:
     """Per-pair screen-space gradients of composite_pairs_plain, by the
     reverse walk renderCUDA's backward runs (each pixel from its n_contrib
     back to the front).
@@ -121,7 +213,8 @@ def composite_pairs_backward_plain(xy, conic, opacity, chans, tile_start, width:
     state: the forward's [ch + 2, H, W] (silhouette and n_contrib rows are
     read); g: cotangents [ch + 1, H, W] of the channels and the silhouette.
     Returns [P, 6 + ch]: d x, d y, d conic a, b, c, d opacity, d channels.
-    Pairs past every pixel's n_contrib get zero."""
+    Pairs past every pixel's n_contrib get zero. `cull` as in
+    composite_pairs_plain."""
     ch = chans.shape[1]
     n_pairs = xy.shape[0]
     n_tiles = tile_start.shape[0] - 1
@@ -140,11 +233,14 @@ def composite_pairs_backward_plain(xy, conic, opacity, chans, tile_start, width:
     out = torch.zeros((n_pairs, 6 + ch), **f32)
     ones = torch.ones((1, n_tiles), **f32)
     p_last = max(n_pairs - 1, 0)
+    box = None if cull is None else cull_rows_plain(xy, conic, opacity, tile_start, width)
     for k in range(kmax - 1, -1, -1):
         valid = k < lens
         idx = torch.clamp(starts + k, max=p_last)
         dx, dy, _, gval, alpha_un, alpha, skip = _pair_alpha(
             xy, conic, opacity, idx, ox, oy, lx, ly)
+        if box is not None:
+            skip = skip | ~cull_visit(box[idx], cull)
         act = ~skip & valid[:, None] & (float(k) < ncon)
         t_cur = torch.where(act, t_cur / (1.0 - alpha), t_cur)
         cval = torch.cat([chans[idx].T, ones])[:, :, None]  # [ch + 1, T, 1]
@@ -154,7 +250,8 @@ def composite_pairs_backward_plain(xy, conic, opacity, chans, tile_start, width:
         last_alpha = torch.where(act, alpha, last_alpha)
         dchan = torch.where(act, alpha * t_cur, 0.0)[None] * gt[:ch]
         not_clamped = act & (alpha_un <= ALPHA_MAX)
-        dpower = torch.where(not_clamped, opacity[idx, None] * dalpha, 0.0) * gval
+        # inside the where: a skipped pixel's exp(power) may be inf, and 0 * inf is NaN
+        dpower = torch.where(not_clamped, opacity[idx, None] * dalpha * gval, 0.0)
         a, b, c = conic[idx, 0:1], conic[idx, 1:2], conic[idx, 2:3]
         rows = torch.stack([
             (dpower * -(a * dx + b * dy)).sum(1),
@@ -180,13 +277,15 @@ def _rows(attrs, pair_gauss):
     return attrs if pair_gauss is None else attrs[pair_gauss.long()]
 
 
-def composite_forward_plain(attrs, pair_gauss, tile_start, width: int, height: int):
+def composite_forward_plain(attrs, pair_gauss, tile_start, width: int, height: int,
+                            cull: int | None = None):
     """attrs [N, 6 + ch] per-Gaussian rows (x, y, conic a, b, c, opacity,
     channels) composited through the sorted pairs pair_gauss [P]; with
-    pair_gauss None, attrs holds one row per sorted pair."""
+    pair_gauss None, attrs holds one row per sorted pair. `cull` as in
+    composite_pairs_plain."""
     a = _rows(attrs, pair_gauss)
     return composite_pairs_plain(a[:, 0:2], a[:, 2:5], a[:, 5], a[:, 6:], tile_start,
-                                 width, height)
+                                 width, height, cull)
 
 
 def _check_rows(attrs, pair_gauss, tile_start, width, height):
@@ -230,12 +329,12 @@ composite_forward.launches = 0
 
 
 def composite_backward_plain(attrs, pair_gauss, tile_start, width: int, height: int,
-                             state, g):
+                             state, g, cull: int | None = None):
     """Per-pair screen-space gradients [P, 6 + ch] of composite_forward_plain
     (composite_pairs_backward_plain on the gathered rows)."""
     a = _rows(attrs, pair_gauss)
     return composite_pairs_backward_plain(a[:, 0:2], a[:, 2:5], a[:, 5], a[:, 6:], tile_start,
-                                          width, height, state, g)
+                                          width, height, state, g, cull)
 
 
 def composite_backward(attrs, pair_gauss, tile_start, width: int, height: int, state, g):

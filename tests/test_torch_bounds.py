@@ -25,17 +25,32 @@ CSRC = Path(bounds.__file__).resolve().parents[1] / "csrc"
 COUNTED = {
     ("common.cuh", "composite_tile"): "4be9b73dca984eac",
     ("common.cuh", "project_iso"): "6ceb4c90acf8407e",
-    ("composite_backward.cu", "composite_backward_kernel"): "598b5195a123f6b0",
+    ("common.cuh", "stage_pair"): "bd387b6753c39811",
+    ("composite_backward.cu", "composite_backward_kernel"): "bc0eeaaee2074f75",
+    ("composite_forward.cu", "composite_pair"): "06abd6ae07b31167",
     ("fused_backward.cu", "fused_backward_kernel"): "7bba1d755741fe64",
     ("fused_backward.cu", "chain_to_world"): "6660f7970abd6bb6",
 }
+# The device code of K1's and K2's cull, whose plain version is written out
+# again in render/composite.py (cull_rows_plain, cull_warp_mask, warp_pixels):
+# the cull's kept-step counts and its CPU tests speak for the kernels only
+# while the two say the same.
+MIRRORED = {
+    ("common.cuh", "pair_reach"): "136799131609be3f",
+    ("common.cuh", "reach_warp_mask"): "8670aab1c2b9d4b9",
+    ("common.cuh", "WarpShape"): "ee0a10f1f5ef17bf",
+}
+# constant in common.cuh -> its copy in render/composite.py
+MIRRORED_CONSTANTS = ("WARP_W", "CULL_MAX_COND", "CULL_REL", "CULL_ABS", "CULL_MAX_COORD",
+                      "CULL_MAX_TERM", "ALPHA_MIN", "ALPHA_MAX", "T_EPS", "TILE")
 
 
 def _definition(file: str, name: str) -> str:
-    """The text of `name`'s definition in csrc/`file`, signature to closing brace."""
+    """The text of `name`'s definition in csrc/`file` (a function or a struct),
+    from its name to the closing brace."""
     text = (CSRC / file).read_text()
-    for m in re.finditer(rf"\b{name}\s*\(", text):
-        brace, semi = text.find("{", m.end()), text.find(";", m.end())
+    for m in re.finditer(rf"\b{name}\s*[({{]", text):
+        brace, semi = text.find("{", m.end() - 1), text.find(";", m.end() - 1)
         if brace != -1 and (semi == -1 or brace < semi):
             depth = 0
             for i in range(brace, len(text)):
@@ -59,6 +74,25 @@ def test_counted_function_is_unchanged(src):
     assert digest == COUNTED[src], (
         f"{src[1]} ({src[0]}) changed: count {', '.join(counts)} again in bounds.py, then "
         f"set its digest here to {digest}")
+
+
+@pytest.mark.parametrize("src", sorted(MIRRORED), ids=lambda s: s[1])
+def test_mirrored_cull_function_is_unchanged(src):
+    digest = hashlib.sha256(_definition(*src).encode()).hexdigest()[:16]
+    assert digest == MIRRORED[src], (
+        f"{src[1]} ({src[0]}) changed: make the same change to the cull's plain version in "
+        f"render/composite.py, then set its digest here to {digest}")
+
+
+@pytest.mark.parametrize("name", MIRRORED_CONSTANTS)
+def test_cull_constant_is_the_same_in_both_languages(name):
+    """One definition in common.cuh, and its value is the Python copy's to
+    float32 (the kernels' cull and its plain version decide alike)."""
+    text = "".join(p.read_text() for p in sorted(CSRC.glob("*.cu*")))
+    found = re.findall(rf"constexpr\s+(?:int|float)\s+{name}\s*=\s*([^;]+);", text)
+    assert len(found) == 1, found
+    value = eval(found[0].replace("f", ""), {"__builtins__": {}})  # e.g. "1.0f / 255.0f"
+    assert np.float32(value) == np.float32(getattr(composite, name))
 
 
 def _micro_inputs(n=300, seed=0):
@@ -106,6 +140,60 @@ def test_bwd_warp_steps_match_a_brute_force_count():
     assert wc.bwd_warp_steps == steps
     n_pairs = int(tile_start[-1])
     assert 0 < steps < 8 * n_pairs and wc.hits > wc.applied > wc.unclamped  # stops, clamps
+
+
+def _brute_force_steps(xy, conic, op, tile_start, cam, ncon, warp_w):
+    """Loops over every (tile, warp, pair) of the forward and the backward
+    walk: (forward steps with a hitting lane, forward steps the cull keeps,
+    backward steps the cull keeps, forward and backward steps with no cull)."""
+    box = composite.cull_rows_plain(xy, conic, op, tile_start, cam.width)
+    keep = composite.cull_warp_mask(box, warp_w)
+    nc_tiles = composite.to_tiles(ncon[None])[0]
+    gx = -(-cam.width // 16)
+    pix = composite.warp_pixels(warp_w)
+    need = kept_f = kept_b = seen_f = seen_b = 0
+    starts = tile_start.tolist()
+    for t in range(len(starts) - 1):
+        ox, oy = t % gx * 16, t // gx * 16
+        for w in range(8):
+            lx, ly = (pix[w] % 16).float(), (pix[w] // 16).float()
+            inside = (ox + lx < cam.width) & (oy + ly < cam.height)
+            trans, done = torch.ones(32), ~inside
+            deepest = int(nc_tiles[t, pix[w]].max())
+            for k in range(starts[t + 1] - starts[t]):
+                i = starts[t] + k
+                kept_b += bool(k < deepest and keep[i, w])
+                seen_b += k < deepest
+                if bool(done.all()):
+                    continue
+                seen_f += 1
+                kept_f += bool(keep[i, w])
+                dx, dy = (xy[i, 0] - ox) - lx, (xy[i, 1] - oy) - ly
+                a, b, c = conic[i]
+                power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+                alpha = torch.clamp(op[i] * torch.exp(power), max=composite.ALPHA_MAX)
+                hit = ~done & (power <= 0) & (alpha >= composite.ALPHA_MIN)
+                need += bool(hit.any())
+                test_t = trans * (1.0 - alpha)
+                stop = hit & (test_t < composite.T_EPS)
+                trans = torch.where(hit & ~stop, test_t, trans)
+                done = done | stop
+    return need, kept_f, kept_b, seen_f, seen_b
+
+
+@pytest.mark.parametrize("warp_w", [16, 8])
+def test_cull_step_counts_match_a_brute_force_count(warp_w):
+    """fwd_warp_steps, fwd_kept_steps, bwd_kept_steps and the uncut step
+    counts against a loop over every (tile, warp, pair), at both warp shapes;
+    the cull keeps every necessary step and drops some."""
+    xy, conic, op, tile_start, cam, ncon = _micro_inputs()
+    wc = bounds.walk_counts(xy, conic, op, tile_start, cam.width, cam.height, warp_w=warp_w)
+    need, kept_f, kept_b, seen_f, seen_b = _brute_force_steps(xy, conic, op, tile_start, cam,
+                                                              ncon, warp_w)
+    assert (wc.fwd_warp_steps, wc.fwd_kept_steps, wc.bwd_kept_steps) == (need, kept_f, kept_b)
+    assert (wc.fwd_visited_steps, wc.bwd_visited_steps) == (seen_f, seen_b)
+    assert 0 < wc.fwd_warp_steps <= wc.fwd_kept_steps < wc.fwd_visited_steps
+    assert 0 < wc.bwd_warp_steps <= wc.bwd_kept_steps < wc.bwd_visited_steps
 
 
 def test_kernel_symbols_are_the_global_functions_of_csrc():

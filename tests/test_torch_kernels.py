@@ -17,7 +17,11 @@ The fused forward's probe kernels run on the probe scripts' map at 64x48
 (~500 pairs per tile): fwd2 must equal K4 bit for bit, math_only its
 plain version as an image, and the dma walks their plain lane sums within
 1e-5 per lane (the same float32 sums in another order). K3 and K5 sum in a
-fixed order: two launches must be equal bit for bit.
+fixed order: two launches must be equal bit for bit. K1 and K2 cull the
+(pair, warp) steps no pixel of the warp can apply: K1 must equal its plain
+version bit for bit, and K2, whose sums also have a fixed order, must be
+equal bit for bit across two launches, on adversarial rows (the families of
+test_torch_cull.py) and on ragged tiles several batches deep.
 """
 import numpy as np
 import pytest
@@ -28,6 +32,7 @@ from splatam_tpu_torch.core.gaussians import GaussianMap
 from splatam_tpu_torch.render import api, binning, composite, fused_iso, probes
 from splatam_tpu_torch.scripts import scene
 from splatam_tpu_torch.slam import steps
+from test_torch_cull import FAMILIES, H as ROWS_H, W as ROWS_W, _family
 
 pytestmark = pytest.mark.cuda
 
@@ -332,6 +337,93 @@ def test_fused_backward_one_channel_at_a_time(cuda):
         d = fused_iso.fused_backward(ps.world8, pose, ts, w, h, state, g)
         again = fused_iso.fused_backward(ps.world8, pose, ts, w, h, state, g)
         ref = fused_iso.fused_backward_plain(ps.world8, pose, ts, w, h, state, g)
+        torch.cuda.synchronize()
+        assert torch.equal(d, again), f"channel {c}: two launches differ"
+        assert _rel(d, ref) <= 1e-4, f"channel {c}"
+        assert bool((d[past] == 0).all()), f"channel {c}: a pair past the reach is not 0"
+
+
+def _assert_same_image(got, ref):
+    """Every channel, the silhouette and n_contrib, bit for bit."""
+    assert torch.equal(got[-1], ref[-1]), "n_contrib differs"
+    assert torch.equal(got, ref), f"worst row {_rel(got[:-1], ref[:-1]):.1e}"
+
+
+# The non_finite family is left to the CPU tests: fminf(0.99, NaN) is 0.99 in
+# the kernels while torch.clamp keeps the NaN, so kernel and plain version
+# differ there by construction (in every walk kernel of the port).
+@pytest.mark.parametrize("family", [f for f in FAMILIES if f != "non_finite"])
+def test_composite_kernels_on_adversarial_rows(cuda, family):
+    """K1 equal to its plain version bit for bit and K2 within 1e-4 per
+    column, twice and equal bit for bit, on rows the cull must not get wrong
+    (opacity around 1/255 and above 1, det <= 0, strong anisotropy, far
+    centres, footprints larger than the tile, grazing ellipses), per pair
+    and gathered through pair_gauss, on a 40x28 image (ragged tiles)."""
+    rows, ts = _family(family, seed=11)
+    rows, ts = rows.to(cuda), ts.to(cuda)
+    w, h = ROWS_W, ROWS_H
+    gen = torch.Generator(cuda).manual_seed(2)
+    g = torch.randn((6, h, w), device=cuda, generator=gen)
+    perm = torch.randperm(rows.shape[0], device=cuda, generator=gen).to(torch.int32)
+    table = torch.empty_like(rows)
+    table[perm.long()] = rows
+    ref = composite.composite_forward_plain(rows, None, ts, w, h)
+    dref = composite.composite_backward_plain(rows, None, ts, w, h, ref, g)
+    for attrs, idx in ((rows, None), (table, perm)):
+        _assert_same_image(composite.composite_forward(attrs, idx, ts, w, h), ref)
+        d = composite.composite_backward(attrs, idx, ts, w, h, ref, g)
+        again = composite.composite_backward(attrs, idx, ts, w, h, ref, g)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(d).all())
+        assert torch.equal(d, again), "two launches differ"
+        assert _rel(d, dref) <= 1e-4
+
+
+def _deep_generic(device):
+    """_deep_scene's camera and map through the generic render: ragged
+    tiles more than two of K1's 256-pair batches deep."""
+    cam = Camera(height=116, width=152, fx=150.0, fy=150.0, cx=76.0, cy=58.0)
+    gm = _map(device, n=20000, seed=9)
+    proj, aux = api.project_gaussians(cam, gm.means3d, gm.unnorm_rotations, gm.logit_opacities,
+                                      gm.log_scales, gm.active)
+    b = binning.build_bins(proj, aux, cam.width, cam.height)
+    d = proj.depth[:, None]
+    attrs = torch.cat([proj.xy, proj.conic, proj.opacity[:, None], gm.rgb_colors, d, d * d], 1)
+    return cam, attrs.contiguous(), b
+
+
+def test_composite_forward_equals_plain_on_deep_ragged_tiles(cuda):
+    cam, attrs, b = _deep_generic(cuda)
+    w, h, ts = cam.width, cam.height, b.tile_start
+    assert int((ts[1:] - ts[:-1]).max()) > 2 * 256
+    ref = composite.composite_forward_plain(attrs, b.pair_gauss, ts, w, h)
+    _assert_same_image(composite.composite_forward(attrs, b.pair_gauss, ts, w, h), ref)
+    rows = attrs[b.pair_gauss.long()].contiguous()
+    _assert_same_image(composite.composite_forward(rows, None, ts, w, h), ref)
+
+
+def test_composite_backward_one_channel_at_a_time(cuda):
+    """K2 with the cotangent in one of the six channels at a time (so a
+    column-to-lane mix-up cannot hide behind a larger column) within 1e-4
+    per column of its plain version, equal bit for bit across two launches,
+    and zeros for every pair past its tile's deepest n_contrib."""
+    cam, attrs, b = _deep_generic(cuda)
+    w, h, ts = cam.width, cam.height, b.tile_start
+    lens = ts[1:] - ts[:-1]
+    assert int(lens.max()) > 3 * 64
+    state = composite.composite_forward(attrs, b.pair_gauss, ts, w, h)
+    reach = composite.to_tiles(state[-1:])[0].amax(1).long()
+    slot = torch.arange(b.n_pairs, device=cuda)
+    tile_of = torch.repeat_interleave(torch.arange(lens.numel(), device=cuda), lens.long())
+    past = slot - ts[:-1].long()[tile_of] >= reach[tile_of]
+    assert int(past.sum()) > 0
+    gen = torch.Generator(cuda).manual_seed(3)
+    for c in range(6):
+        g = torch.zeros((6, h, w), device=cuda)
+        g[c] = torch.randn((h, w), device=cuda, generator=gen)
+        d = composite.composite_backward(attrs, b.pair_gauss, ts, w, h, state, g)
+        again = composite.composite_backward(attrs, b.pair_gauss, ts, w, h, state, g)
+        ref = composite.composite_backward_plain(attrs, b.pair_gauss, ts, w, h, state, g)
         torch.cuda.synchronize()
         assert torch.equal(d, again), f"channel {c}: two launches differ"
         assert _rel(d, ref) <= 1e-4, f"channel {c}"
