@@ -98,75 +98,8 @@ __device__ __forceinline__ ProjIso project_iso(const float* __restrict__ w, cons
   return q;
 }
 
-// Pair attributes staged in shared memory, structure of arrays:
-// rows 0-1 xy, 2-4 conic a/b/c, 5 opacity, 6.. channels.
-template <int NCH>
-struct SharedPairs {
-  float v[6 + NCH][PIX];
-};
-
-// Front-to-back compositing of one tile, renderCUDA's loop: batches of up to
-// PIX pairs are staged in shared memory by `stage(i, slot)` (one pair per
-// thread), then every pixel walks the batch. Writes NCH channels, the
-// silhouette (1 - T_final) and n_contrib to out [NCH + 2, H, W] for pixels
-// inside the image (the bottom and right tiles may be ragged).
-template <int NCH, class Stage>
-__device__ __forceinline__ void composite_tile(SharedPairs<NCH>& sh, Stage stage, int start,
-                                               int end, int grid_x, int width, int height,
-                                               float* __restrict__ out) {
-  const int tile = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lx = tid % TILE, ly = tid / TILE;
-  const int tx = tile % grid_x, ty = tile / grid_x;
-  const int pxi = tx * TILE + lx, pyi = ty * TILE + ly;
-  const bool inside = pxi < width && pyi < height;
-  const float ox = float(tx * TILE), oy = float(ty * TILE);
-  const float fx = float(lx), fy = float(ly);
-
-  float T = 1.0f;
-  float acc[NCH];
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) acc[c] = 0.0f;
-  int last = 0;
-  bool done = !inside;
-
-  for (int base = start; base < end; base += PIX) {
-    if (__syncthreads_count(done) == PIX) break;
-    const int i = base + tid;
-    if (i < end) stage(i, tid);
-    __syncthreads();
-    const int n = min(PIX, end - base);
-    for (int j = 0; j < n && !done; ++j) {
-      const float dx = (sh.v[0][j] - ox) - fx;
-      const float dy = (sh.v[1][j] - oy) - fy;
-      const float power =
-          -0.5f * (sh.v[2][j] * dx * dx + sh.v[4][j] * dy * dy) - sh.v[3][j] * dx * dy;
-      if (power > 0.0f) continue;
-      const float alpha = fminf(ALPHA_MAX, sh.v[5][j] * expf(power));
-      if (alpha < ALPHA_MIN) continue;
-      const float test_T = T * (1.0f - alpha);
-      if (test_T < T_EPS) {
-        done = true;
-        break;
-      }
-      const float wgt = alpha * T;
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) acc[c] += sh.v[6 + c][j] * wgt;
-      T = test_T;
-      last = base - start + j + 1;
-    }
-  }
-  if (inside) {
-    const size_t hw = size_t(width) * height, pix = size_t(pyi) * width + pxi;
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) out[c * hw + pix] = acc[c];
-    out[NCH * hw + pix] = 1.0f - T;
-    out[(NCH + 1) * hw + pix] = float(last);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Shared by the composite kernels (K1, K2) and the fused backward (K5).
+// Shared by the composite kernels (K1, K2) and the fused kernels (K4, K5).
 // ---------------------------------------------------------------------------
 
 // One step of the reduce-scatter: lanes whose `BIT` is set keep the upper H
@@ -193,7 +126,7 @@ __device__ __forceinline__ float reduce_scatter16(float* v, int lane) {
   return v[0] + __shfl_xor_sync(FULL, v[0], 1);
 }
 
-// The pixels of a warp of K1 and K2 inside its 16x16 tile: four rows of eight
+// The pixels of a warp of K1, K2 and K4 inside its 16x16 tile: four rows of eight
 // (warp w holds columns 8 (w % 2) .. + 7 of rows 4 (w / 2) .. + 3), which a
 // small round footprint cuts less often than two rows of 16 (measured,
 // PERF.md). WARP_W in render/composite.py is the plain version's copy. The map
@@ -290,17 +223,210 @@ struct __align__(16) StagedPair {
   float pad;
 };
 
+// Stages one pair from its compositing attributes (centre x, y in image pixels,
+// conic, opacity, five channels) and returns the mask of the warps that must
+// visit it.
+__device__ __forceinline__ unsigned stage_values(StagedPair& s, float x, float y, float ca,
+                                                 float cb, float cc, float op, float c0, float c1,
+                                                 float c2, float c3, float c4, float ox,
+                                                 float oy) {
+  const float rx = x - ox, ry = y - oy;
+  s.geo = make_float4(rx, ry, ca, cb);
+  s.chan = make_float4(c0, c1, c2, c3);
+  s.geo2 = make_float2(cc, op);
+  s.chan4 = c4;
+  return reach_warp_mask(pair_reach(rx, ry, ca, cb, cc, op));
+}
+
 // Stages the 11-column row `a` of one pair and returns the mask of the warps
 // that must visit it.
 __device__ __forceinline__ unsigned stage_pair(StagedPair& s, const float* __restrict__ a,
                                                float ox, float oy) {
-  const float rx = a[0] - ox, ry = a[1] - oy;
-  const float ca = a[2], cb = a[3], cc = a[4], op = a[5];
-  s.geo = make_float4(rx, ry, ca, cb);
-  s.chan = make_float4(a[6], a[7], a[8], a[9]);
-  s.geo2 = make_float2(cc, op);
-  s.chan4 = a[10];
-  return reach_warp_mask(pair_reach(rx, ry, ca, cb, cc, op));
+  return stage_values(s, a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], a[9], a[10], ox,
+                      oy);
 }
+
+// ---------------------------------------------------------------------------
+// The forward walk of K1 (composite_forward.cu), K4 (fused_forward.cu) and the
+// probes fwd2 and math_only (fused_probes.cu): front-to-back compositing of
+// one tile, renderCUDA's loop. Batches of 256 pairs are staged in shared
+// memory, one pair per thread, by a `Stager` (how a kernel reads a pair and
+// turns it into a StagedPair); eight ballots per staging warp turn the pairs'
+// warp masks into one 32-bit word per (warp, 32 pairs); each warp steps through
+// the set bits of its own words in depth order. A block stops when every
+// pixel has, a warp when its 32 pixels have.
+// ---------------------------------------------------------------------------
+
+// One pixel's evaluation of a staged pair; `index` is the pair's 1-based place
+// in its tile's list (the pixel's n_contrib if the pair is applied).
+__device__ __forceinline__ void composite_pair(const StagedPair& p, float fx, float fy,
+                                               int index, float& T, float* acc, int& last,
+                                               bool& done) {
+  const float4 g = p.geo;
+  const float2 g2 = p.geo2;
+  const float dx = g.x - fx;
+  const float dy = g.y - fy;
+  const float power = -0.5f * (g.z * dx * dx + g2.x * dy * dy) - g.w * dx * dy;
+  if (power > 0.0f) return;
+  const float alpha = fminf(ALPHA_MAX, g2.y * expf(power));
+  if (alpha < ALPHA_MIN) return;
+  const float test_T = T * (1.0f - alpha);
+  if (test_T < T_EPS) {
+    done = true;
+    return;
+  }
+  const float wgt = alpha * T;
+  const float4 c = p.chan;
+  acc[0] += c.x * wgt;
+  acc[1] += c.y * wgt;
+  acc[2] += c.z * wgt;
+  acc[3] += c.w * wgt;
+  acc[4] += p.chan4 * wgt;
+  T = test_T;
+  last = index;
+}
+
+// The pixel a thread owns in its tile (WarpShape) and its state in the walk.
+struct WalkPixel {
+  static constexpr int NCH = 5;  // StagedPair holds exactly five channels
+  int pxi, pyi;
+  bool inside, done;
+  float ox, oy, fx, fy;  // the tile's origin; the pixel inside the tile
+  float T, acc[NCH];
+  int last;
+
+  __device__ __forceinline__ WalkPixel(int grid_x, int width, int height) {
+    const int tile = blockIdx.x, tid = threadIdx.x;
+    const int lx = WarpShape::lx(tid), ly = WarpShape::ly(tid);
+    const int tx = tile % grid_x, ty = tile / grid_x;
+    pxi = tx * TILE + lx;
+    pyi = ty * TILE + ly;
+    inside = pxi < width && pyi < height;
+    ox = float(tx * TILE);
+    oy = float(ty * TILE);
+    fx = float(lx);
+    fy = float(ly);
+    T = 1.0f;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) acc[c] = 0.0f;
+    last = 0;
+    done = !inside;
+  }
+
+  // The channels, the silhouette 1 - T_final and n_contrib into out
+  // [NCH + 2, H, W]; the bottom and right tiles may be ragged.
+  __device__ __forceinline__ void write(int width, int height, float* __restrict__ out) const {
+    if (!inside) return;
+    const size_t hw = size_t(width) * height, pix = size_t(pyi) * width + pxi;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) out[c * hw + pix] = acc[c];
+    out[NCH * hw + pix] = 1.0f - T;
+    out[(NCH + 1) * hw + pix] = float(last);
+  }
+};
+
+// What one walk step stages: BATCHES batches of 256 pairs and, per warp of the
+// tile, the list of staged pairs it must visit, a bit per pair.
+template <int BATCHES>
+struct WalkShared {
+  static constexpr int PAIRS = BATCHES * PIX;
+  static constexpr int WORDS = PAIRS / 32;
+  StagedPair pairs[PAIRS];
+  unsigned words[PIX / 32][WORDS];
+};
+
+// The staging warp holds 32 pairs, one per lane with its warp mask: they are
+// word `word` of every warp's list.
+template <int WORDS>
+__device__ __forceinline__ void publish_masks(unsigned (*words)[WORDS], unsigned mask, int word) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int w = 0; w < PIX / 32; ++w) {
+    const unsigned bits = __ballot_sync(FULL, (mask >> w) & 1u);
+    if (lane == 0) words[w][word] = bits;
+  }
+}
+
+// A warp walks the first n staged pairs of its list; the list's first pair is
+// pair `first` (1-based) of the tile. With TRIM the list may hold set bits
+// past n, which are masked off (a walk that stages once and walks a part).
+template <bool TRIM>
+__device__ __forceinline__ void walk_words(const StagedPair* pairs, const unsigned* words, int n,
+                                           int first, WalkPixel& p) {
+  for (int k = 0; k < (n + 31) >> 5; ++k) {
+    if (__all_sync(FULL, p.done)) break;
+    unsigned bits = words[k];
+    if (TRIM && n - (k << 5) < 32) bits &= (1u << (n - (k << 5))) - 1u;
+    while (bits != 0u) {
+      const int j = (k << 5) + __ffs(bits) - 1;
+      bits &= bits - 1u;
+      if (!p.done) composite_pair(pairs[j], p.fx, p.fy, first + j, p.T, p.acc, p.last, p.done);
+    }
+  }
+}
+
+// The whole walk of the tile's pairs [start, end). A Stager has a type Row,
+// load(i) -> Row (pair i's numbers from device memory) and
+// stage(StagedPair&, Row, ox, oy) -> the pair's warp mask. With BATCHES > 1 a
+// thread loads the rows of all its pairs of the step before it stages one.
+template <int BATCHES, class Stager>
+__device__ __forceinline__ void composite_walk(WalkShared<BATCHES>& sh, const Stager& stager,
+                                               int start, int end, int grid_x, int width,
+                                               int height, float* __restrict__ out) {
+  constexpr int STEP = WalkShared<BATCHES>::PAIRS;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  WalkPixel p(grid_x, width, height);
+  for (int base = start; base < end; base += STEP) {
+    if (__syncthreads_count(p.done) == PIX) break;
+    typename Stager::Row rows[BATCHES];
+#pragma unroll
+    for (int b = 0; b < BATCHES; ++b) {
+      const int i = base + b * PIX + tid;
+      if (i < end) rows[b] = stager.load(i);
+    }
+#pragma unroll
+    for (int b = 0; b < BATCHES; ++b) {
+      const int i = base + b * PIX + tid;
+      unsigned mask = 0;
+      if (i < end) mask = stager.stage(sh.pairs[b * PIX + tid], rows[b], p.ox, p.oy);
+      publish_masks(sh.words, mask, b * (PIX / 32) + warp);
+    }
+    __syncthreads();
+    walk_words<false>(sh.pairs, sh.words[warp], min(STEP, end - base), base - start + 1, p);
+  }
+  p.write(width, height, out);
+}
+
+// K4's staging (and fwd2's, math_only's): the pair's 32-byte world row, read
+// in place or through pair_gauss as two float4, projected (project_iso) and
+// staged as K1 stages an 11-column row: centre, conic, opacity, then the
+// channels r, g, b, tz, tz * tz. The cull's box is taken from the projected
+// values, so it bounds the pair the walk composites: one behind the near plane
+// is projected at safe_tz = 1 and composited there (in_front and det_ok stay
+// out of the skip mask, splatam_tpu/render/pallas/fused_iso.py:168-178); with
+// det == 0 the conic is degenerate and the rule gives it the whole plane.
+struct ProjectedRows {
+  struct Row {
+    float4 lo, hi;
+  };
+  const float* __restrict__ world8;
+  const int* __restrict__ pair_gauss;  // null: world8 holds one row per sorted pair
+  const Pose& pose;
+  float width, height;
+
+  __device__ __forceinline__ Row load(int i) const {
+    const size_t row = pair_gauss != nullptr ? size_t(pair_gauss[i]) : size_t(i);
+    const float4* r = reinterpret_cast<const float4*>(world8 + row * 8);
+    return {r[0], r[1]};
+  }
+
+  __device__ __forceinline__ unsigned stage(StagedPair& s, const Row& r, float ox,
+                                            float oy) const {
+    const float w[8] = {r.lo.x, r.lo.y, r.lo.z, r.lo.w, r.hi.x, r.hi.y, r.hi.z, r.hi.w};
+    const ProjIso q = project_iso(w, pose, width, height);
+    return stage_values(s, q.pix_x, q.pix_y, q.conic_a, q.conic_b, q.conic_c, q.opacity, w[5],
+                        w[6], w[7], q.tz, q.tz * q.tz, ox, oy);
+  }
+};
 
 }  // namespace splatam

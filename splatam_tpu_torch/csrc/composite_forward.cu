@@ -31,8 +31,9 @@
 //   - a block stops as soon as every pixel has terminated, a warp as soon as
 //     its 32 pixels have (it then only meets the barriers).
 // The output goes straight into the [C, H, W] image; no tile-major
-// intermediate and no assemble pass. The arithmetic is composite_tile's
-// (common.cuh, still the walk of K4 and the probes), expression by expression.
+// intermediate and no assemble pass. The walk itself (composite_walk,
+// common.cuh) is shared with K4 and the probes fwd2 and math_only; what is
+// K1's own is how a pair is read: its 11-column row.
 //
 // Two input modes: per-Gaussian rows gathered through pair_gauss (the generic
 // render), or, with a null pair_gauss, one row per sorted pair (the pair-space
@@ -41,94 +42,31 @@
 
 namespace splatam {
 
-constexpr int NCH = 5;  // the AoS staging holds exactly five channels
-constexpr int WARPS = PIX / 32;
-constexpr int WORDS = PIX / 32;  // 32-pair words of one staged batch
+// K1's staging: the pair's 11-column attribute row, gathered by Gaussian index
+// or read in place.
+struct AttrRows {
+  using Row = const float*;
+  const float* __restrict__ attrs;
+  const int* __restrict__ pair_gauss;
 
-// One pixel's evaluation of staged pair j: composite_tile's loop body.
-__device__ __forceinline__ void composite_pair(const StagedPair& p, float fx, float fy,
-                                               int index, float& T, float* acc, int& last,
-                                               bool& done) {
-  const float4 g = p.geo;
-  const float2 g2 = p.geo2;
-  const float dx = g.x - fx;
-  const float dy = g.y - fy;
-  const float power = -0.5f * (g.z * dx * dx + g2.x * dy * dy) - g.w * dx * dy;
-  if (power > 0.0f) return;
-  const float alpha = fminf(ALPHA_MAX, g2.y * expf(power));
-  if (alpha < ALPHA_MIN) return;
-  const float test_T = T * (1.0f - alpha);
-  if (test_T < T_EPS) {
-    done = true;
-    return;
+  __device__ __forceinline__ Row load(int i) const {
+    const size_t row = pair_gauss != nullptr ? size_t(pair_gauss[i]) : size_t(i);
+    return attrs + row * (6 + WalkPixel::NCH);
   }
-  const float wgt = alpha * T;
-  const float4 c = p.chan;
-  acc[0] += c.x * wgt;
-  acc[1] += c.y * wgt;
-  acc[2] += c.z * wgt;
-  acc[3] += c.w * wgt;
-  acc[4] += p.chan4 * wgt;
-  T = test_T;
-  last = index;
-}
+
+  __device__ __forceinline__ unsigned stage(StagedPair& s, Row a, float ox, float oy) const {
+    return stage_pair(s, a, ox, oy);
+  }
+};
 
 __global__ void __launch_bounds__(PIX, 4)
     composite_forward_kernel(const float* __restrict__ attrs, const int* __restrict__ pair_gauss,
                              const int* __restrict__ tile_start, int grid_x, int width,
                              int height, float* __restrict__ out) {
-  __shared__ StagedPair sh[PIX];
-  __shared__ unsigned s_words[WARPS][WORDS];  // per warp: the staged pairs it must visit
-
-  const int tile = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int lx = WarpShape::lx(tid), ly = WarpShape::ly(tid);
-  const int tx = tile % grid_x, ty = tile / grid_x;
-  const int pxi = tx * TILE + lx, pyi = ty * TILE + ly;
-  const bool inside = pxi < width && pyi < height;
-  const float ox = float(tx * TILE), oy = float(ty * TILE);
-  const float fx = float(lx), fy = float(ly);
-  const int start = tile_start[tile], end = tile_start[tile + 1];
-
-  float T = 1.0f;
-  float acc[NCH] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  int last = 0;
-  bool done = !inside;
-
-  for (int base = start; base < end; base += PIX) {
-    if (__syncthreads_count(done) == PIX) break;
-    const int i = base + tid;
-    unsigned mask = 0;
-    if (i < end) {
-      const size_t row = pair_gauss != nullptr ? size_t(pair_gauss[i]) : size_t(i);
-      mask = stage_pair(sh[tid], attrs + row * (6 + NCH), ox, oy);
-    }
-    // Staging warp k holds pairs 32k .. 32k + 31: word k of every warp's list.
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const unsigned word = __ballot_sync(FULL, (mask >> w) & 1u);
-      if (lane == 0) s_words[w][warp] = word;
-    }
-    __syncthreads();
-    const int n = min(PIX, end - base);
-    const int first = base - start + 1;  // n_contrib of the batch's first pair
-    for (int k = 0; k < (n + 31) >> 5; ++k) {
-      if (__all_sync(FULL, done)) break;
-      unsigned bits = s_words[warp][k];
-      while (bits != 0u) {
-        const int j = (k << 5) + __ffs(bits) - 1;
-        bits &= bits - 1u;
-        if (!done) composite_pair(sh[j], fx, fy, first + j, T, acc, last, done);
-      }
-    }
-  }
-  if (inside) {
-    const size_t hw = size_t(width) * height, pix = size_t(pyi) * width + pxi;
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) out[c * hw + pix] = acc[c];
-    out[NCH * hw + pix] = 1.0f - T;
-    out[(NCH + 1) * hw + pix] = float(last);
-  }
+  __shared__ WalkShared<1> sh;
+  const AttrRows rows = {attrs, pair_gauss};
+  composite_walk<1>(sh, rows, tile_start[blockIdx.x], tile_start[blockIdx.x + 1], grid_x, width,
+                    height, out);
 }
 
 }  // namespace splatam

@@ -6,7 +6,9 @@
 // accumulators (the silhouette is a constant-1 channel whose cotangent joins
 // the per-pixel sum), recomputes the projection and alpha of every pair, and
 // the per-pair gradient is chained through the in-kernel projection to the
-// pair's world row: mean xyz, s^2, opacity, rgb ([P, 8]).
+// pair's world row: mean xyz, s^2, opacity, rgb ([P, 8]). The rows come per
+// sorted pair or, as K4 takes them, per Gaussian through pair_gauss; the
+// gradients are per sorted pair in both modes.
 //
 // One block per 16x16 tile, one thread per pixel; pairs are staged BB at a
 // time in shared memory, projected once per tile by one thread each. Each
@@ -111,17 +113,21 @@ __device__ __forceinline__ void chain_to_world(const ProjIso& q, const Pose& P, 
   d[7] = s[8];
 }
 
-__device__ __forceinline__ void load_row(const float* __restrict__ world8, int i, float* w) {
-  const float4* row = reinterpret_cast<const float4*>(world8 + size_t(i) * 8);
+// Pair i's world row: row pair_gauss[i] of a per-Gaussian table, or, with a
+// null pair_gauss, row i of per-pair rows.
+__device__ __forceinline__ void load_row(const float* __restrict__ world8,
+                                         const int* __restrict__ pair_gauss, int i, float* w) {
+  const size_t r = pair_gauss != nullptr ? size_t(pair_gauss[i]) : size_t(i);
+  const float4* row = reinterpret_cast<const float4*>(world8 + r * 8);
   const float4 lo = row[0], hi = row[1];
   w[0] = lo.x; w[1] = lo.y; w[2] = lo.z; w[3] = lo.w;
   w[4] = hi.x; w[5] = hi.y; w[6] = hi.z; w[7] = hi.w;
 }
 
 __global__ void __launch_bounds__(PIX, MIN_BLOCKS)
-    fused_backward_kernel(const float* __restrict__ world8, const float* __restrict__ pose,
-                          const int* __restrict__ tile_start, int grid_x, int width,
-                          int height, const float* __restrict__ state,
+    fused_backward_kernel(const float* __restrict__ world8, const int* __restrict__ pair_gauss,
+                          const float* __restrict__ pose, const int* __restrict__ tile_start,
+                          int grid_x, int width, int height, const float* __restrict__ state,
                           const float* __restrict__ g, float* __restrict__ dpair) {
   __shared__ float s_attr[11][BB];  // xy, conic a/b/c, opacity, r, g, b, z, z^2
   __shared__ float s_red[WARPS][BB][NS];  // warp totals; s_red[0] then the block's sums
@@ -182,7 +188,7 @@ __global__ void __launch_bounds__(PIX, MIN_BLOCKS)
     // walk (done before its merge barrier) and its chain (by this thread).
     if (tid < n) {
       float w[8];
-      load_row(world8, bstart + tid, w);
+      load_row(world8, pair_gauss, bstart + tid, w);
       const ProjIso q = project_iso(w, P, fw, fh);
       s_q[tid] = q;
       s_attr[0][tid] = q.pix_x;
@@ -283,13 +289,14 @@ __global__ void __launch_bounds__(PIX, MIN_BLOCKS)
 
 }  // namespace splatam
 
-extern "C" int fused_backward(const float* world8, const float* pose, const int* tile_start,
-                              int grid_x, int grid_y, int width, int height, const float* state,
-                              const float* g, float* dpair, void* stream) {
+extern "C" int fused_backward(const float* world8, const int* pair_gauss, const float* pose,
+                              const int* tile_start, int grid_x, int grid_y, int width,
+                              int height, const float* state, const float* g, float* dpair,
+                              void* stream) {
   const int tiles = grid_x * grid_y;
   if (tiles > 0) {
     splatam::fused_backward_kernel<<<tiles, splatam::PIX, 0, (cudaStream_t)stream>>>(
-        world8, pose, tile_start, grid_x, width, height, state, g, dpair);
+        world8, pair_gauss, pose, tile_start, grid_x, width, height, state, g, dpair);
   }
   return (int)cudaGetLastError();
 }

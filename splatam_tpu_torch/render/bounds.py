@@ -35,9 +35,9 @@ from splatam_tpu_torch.render.composite import (
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-# Per pair-pixel evaluation of the forward walk (the loop body of
-# composite_tile, common.cuh, which K1's composite_pair repeats on a pair
-# staged relative to the tile's origin):
+# Per pair-pixel evaluation of the forward walk (composite_pair, common.cuh,
+# run once per pixel for every pair walk_words visits, on a pair that
+# stage_values staged relative to the tile's origin):
 EVAL_OPS = 13  # dx, dy, power, the power > 0 test
 ALPHA_OPS = 4  # expf, opacity * G, the 0.99 clamp, the 1/255 test (power <= 0)
 HIT_OPS = 3  # T * (1 - alpha), the T < 1e-4 test (alpha >= 1/255)
@@ -49,21 +49,21 @@ BWD_APPLY_OPS = 51 + 11  # T / (1 - alpha), the weight, 6 suffix channels, and t
 #                          11 adds that sum the pair's gradient over its pixels
 BWD_UNCLAMPED_OPS = 22  # dpower and the conic / xy / opacity terms (alpha not clamped)
 # Per staged pair:
-PROJ_OPS = 79  # project_iso (common.cuh) and tz^2
+PROJ_OPS = 79  # project_iso and the tz^2 of ProjectedRows::stage (common.cuh)
 CHAIN_OPS = 138  # chain_to_world (fused_backward.cu)
 # The device functions (csrc/ file, name) each count was made from; the
 # tests pin those functions' text, so an edit to one asks for a recount.
 OP_SOURCES = {
-    "EVAL_OPS": (("common.cuh", "composite_tile"), ("composite_forward.cu", "composite_pair"),
-                 ("common.cuh", "stage_pair")),
-    "ALPHA_OPS": (("common.cuh", "composite_tile"), ("composite_forward.cu", "composite_pair")),
-    "HIT_OPS": (("common.cuh", "composite_tile"), ("composite_forward.cu", "composite_pair")),
-    "APPLY_OPS": (("common.cuh", "composite_tile"), ("composite_forward.cu", "composite_pair")),
+    "EVAL_OPS": (("common.cuh", "composite_pair"), ("common.cuh", "walk_words"),
+                 ("common.cuh", "stage_values"), ("common.cuh", "stage_pair")),
+    "ALPHA_OPS": (("common.cuh", "composite_pair"),),
+    "HIT_OPS": (("common.cuh", "composite_pair"),),
+    "APPLY_OPS": (("common.cuh", "composite_pair"),),
     "BWD_APPLY_OPS": (("composite_backward.cu", "composite_backward_kernel"),
                       ("fused_backward.cu", "fused_backward_kernel")),
     "BWD_UNCLAMPED_OPS": (("composite_backward.cu", "composite_backward_kernel"),
                           ("fused_backward.cu", "fused_backward_kernel")),
-    "PROJ_OPS": (("common.cuh", "project_iso"),),
+    "PROJ_OPS": (("common.cuh", "project_iso"), ("common.cuh", "ProjectedRows")),
     "CHAIN_OPS": (("fused_backward.cu", "chain_to_world"),),
 }
 

@@ -10,7 +10,8 @@ Tracking contracts them into the pose with two small matmuls
 (`_pose_grads`); mapping sums them per Gaussian with K3
 (composite.segment_reduce).
 
-World-8 rows ([P, 8] f32, one row per sorted pair):
+World-8 rows ([P, 8] f32, one row per sorted pair, or [N, 8], one per
+Gaussian, read through the sorted pairs' Gaussian indices pair_gauss [P]):
   0-2 mean_w xyz   3 s^2   4 opacity (sigmoid-activated, active-masked)
   5-7 rgb
 Pose vector ([24] f32, on the device):
@@ -29,6 +30,8 @@ from splatam_tpu_torch.render import _cuda
 from splatam_tpu_torch.render.binning import grid_shape
 from splatam_tpu_torch.render.composite import (
     CH,
+    _ptr,
+    _rows,
     composite_pairs_backward_plain,
     composite_pairs_plain,
     segment_reduce,
@@ -112,31 +115,43 @@ def project_pairs_plain(world8, pose, width: int, height: int):
 # ---------------------------------------------------------------------------
 
 
-def fused_forward_plain(world8, pose_vec, tile_start, width: int, height: int):
+def fused_forward_plain(world8, pose_vec, tile_start, width: int, height: int,
+                        pair_gauss=None, cull: int | None = None):
+    """world8 [N, 8] per-Gaussian world rows composited through the sorted
+    pairs pair_gauss [P]; with pair_gauss None, world8 holds one row per
+    sorted pair. `cull` as in composite_pairs_plain: the kernels' cull on the
+    projected pairs, which must change nothing."""
     return composite_pairs_plain(
-        *project_pairs_plain(world8, pose_vec, width, height), tile_start, width, height)
+        *project_pairs_plain(_rows(world8, pair_gauss), pose_vec, width, height), tile_start,
+        width, height, cull)
 
 
-def _check_common(world8, pose_vec, tile_start, width, height):
+def _check_common(world8, pose_vec, tile_start, width, height, pair_gauss=None):
+    """Validate K4/K5 inputs; returns (grid_x, grid_y, pair count)."""
     gx, gy = grid_shape(width, height)
     _cuda.require(world8, "world8", torch.float32, (None, W8))
     _cuda.require(pose_vec, "pose_vec", torch.float32, (POSE_LEN,))
     _cuda.require(tile_start, "tile_start", torch.int32, (gx * gy + 1,))
+    if pair_gauss is not None:
+        _cuda.require(pair_gauss, "pair_gauss", torch.int32, (None,))
     if world8.data_ptr() % 16:
         raise ValueError("world8: the kernels read rows as float4, need 16-byte alignment")
-    return gx, gy
+    return gx, gy, (world8 if pair_gauss is None else pair_gauss).shape[0]
 
 
-def fused_forward(world8, pose_vec, tile_start, width: int, height: int):
+def fused_forward(world8, pose_vec, tile_start, width: int, height: int, pair_gauss=None):
     """K4 wrapper: [7, H, W] (r, g, b, z, z^2, silhouette, n_contrib) from
-    per-pair world rows [P, 8] sorted by tile. CUDA tensors launch the
+    per-Gaussian world rows [N, 8] and the sorted pairs' Gaussian indices
+    pair_gauss [P] (int32), or, with pair_gauss None, from per-pair world
+    rows [P, 8] sorted by tile. tile_start[-1] must not exceed P (the
+    binning's structures hold exactly P pairs). CUDA tensors launch the
     kernel; CPU tensors take the plain version."""
     if not world8.is_cuda:
-        return fused_forward_plain(world8, pose_vec, tile_start, width, height)
-    gx, gy = _check_common(world8, pose_vec, tile_start, width, height)
+        return fused_forward_plain(world8, pose_vec, tile_start, width, height, pair_gauss)
+    gx, gy, _ = _check_common(world8, pose_vec, tile_start, width, height, pair_gauss)
     out = torch.empty((CH + 2, height, width), dtype=torch.float32, device=world8.device)
     err = _cuda.lib().fused_forward(
-        world8.data_ptr(), pose_vec.data_ptr(), tile_start.data_ptr(), gx, gy,
+        world8.data_ptr(), _ptr(pair_gauss), pose_vec.data_ptr(), tile_start.data_ptr(), gx, gy,
         width, height, out.data_ptr(), _cuda.stream_ptr(world8))
     _cuda.check(err, "fused_forward")
     fused_forward.launches += 1
@@ -151,11 +166,13 @@ fused_forward.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def fused_backward_plain(world8, pose_vec, tile_start, width: int, height: int, state, g):
+def fused_backward_plain(world8, pose_vec, tile_start, width: int, height: int, state, g,
+                         pair_gauss=None):
     """The reverse walk in screen space (composite_pairs_backward_plain),
-    chained to the world rows through autograd of the projection."""
+    chained to the per-pair world rows (gathered through pair_gauss, if
+    given) through autograd of the projection: [P, 8]."""
     with torch.enable_grad():
-        w8 = world8.detach().requires_grad_(True)
+        w8 = _rows(world8, pair_gauss).detach().requires_grad_(True)
         xy, conic, op, chans = project_pairs_plain(w8, pose_vec.detach(), width, height)
         screen = composite_pairs_backward_plain(
             xy.detach(), conic.detach(), op.detach(), chans.detach(), tile_start,
@@ -169,18 +186,21 @@ def fused_backward_plain(world8, pose_vec, tile_start, width: int, height: int, 
     return d_w8
 
 
-def fused_backward(world8, pose_vec, tile_start, width: int, height: int, state, g):
-    """K5 wrapper: per-pair world gradients [P, 8] given the forward's
-    output `state` [7, H, W] and cotangents g [6, H, W] (r, g, b, z, z^2,
-    silhouette). Every slot is written: pairs no pixel reached get 0."""
+def fused_backward(world8, pose_vec, tile_start, width: int, height: int, state, g,
+                   pair_gauss=None):
+    """K5 wrapper: per-pair world gradients [P, 8] in sorted-pair order given
+    the forward's output `state` [7, H, W] and cotangents g [6, H, W] (r, g,
+    b, z, z^2, silhouette). world8 and pair_gauss as fused_forward takes
+    them. Every slot is written: pairs no pixel reached get 0."""
     if not world8.is_cuda:
-        return fused_backward_plain(world8, pose_vec, tile_start, width, height, state, g)
-    gx, gy = _check_common(world8, pose_vec, tile_start, width, height)
+        return fused_backward_plain(world8, pose_vec, tile_start, width, height, state, g,
+                                    pair_gauss)
+    gx, gy, n_pairs = _check_common(world8, pose_vec, tile_start, width, height, pair_gauss)
     _cuda.require(state, "state", torch.float32, (CH + 2, height, width))
     _cuda.require(g, "g", torch.float32, (CH + 1, height, width))
-    out = torch.empty_like(world8)
+    out = torch.empty((n_pairs, W8), dtype=torch.float32, device=world8.device)
     err = _cuda.lib().fused_backward(
-        world8.data_ptr(), pose_vec.data_ptr(), tile_start.data_ptr(), gx, gy,
+        world8.data_ptr(), _ptr(pair_gauss), pose_vec.data_ptr(), tile_start.data_ptr(), gx, gy,
         width, height, state.data_ptr(), g.data_ptr(), out.data_ptr(),
         _cuda.stream_ptr(world8))
     _cuda.check(err, "fused_backward")
@@ -227,26 +247,26 @@ class FusedPairs(torch.autograd.Function):
 
 
 class FusedGauss(torch.autograd.Function):
-    """Mapping render: gradients flow to the per-Gaussian world rows
-    [N, 8] through K5 and then K3; the pose is a constant."""
+    """Mapping render: K4 and K5 read the per-Gaussian world rows [N, 8]
+    through ps.pair_gauss (no per-pair copy is made); gradients flow to the
+    rows through K5 and then K3; the pose is a constant."""
 
     @staticmethod
     def forward(ctx, world8_rows, rmat, t, ps, geom):
         width, height, intr = geom
         pose = make_pose_vec(rmat, t, width, height, *intr)
-        world8 = world8_rows[ps.pair_gauss.long()].contiguous()
-        out = fused_forward(world8, pose, ps.tile_start, width, height)
-        ctx.save_for_backward(world8, pose, out)
+        out = fused_forward(world8_rows, pose, ps.tile_start, width, height, ps.pair_gauss)
+        ctx.save_for_backward(world8_rows, pose, out)
         ctx.ps, ctx.geom = ps, geom
         return out[:CH + 1]
 
     @staticmethod
     def backward(ctx, g):
-        world8, pose, out = ctx.saved_tensors
+        world8_rows, pose, out = ctx.saved_tensors
         ps = ctx.ps
         width, height, _ = ctx.geom
-        dpair = fused_backward(world8, pose, ps.tile_start, width, height, out,
-                               g.contiguous())
+        dpair = fused_backward(world8_rows, pose, ps.tile_start, width, height, out,
+                               g.contiguous(), ps.pair_gauss)
         d_rows = segment_reduce(dpair, ps.dst, ps.offsets, ps.counts)
         return d_rows, None, None, None, None
 

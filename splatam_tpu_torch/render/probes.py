@@ -52,7 +52,7 @@ def fwd2_plain(world8, pose_vec, tile_start, width: int, height: int):
 
 
 def _launch_forward(name, world8, pose_vec, tile_start, width, height):
-    gx, gy = _check_common(world8, pose_vec, tile_start, width, height)
+    gx, gy, _ = _check_common(world8, pose_vec, tile_start, width, height)
     out = torch.empty((CH + 2, height, width), dtype=torch.float32, device=world8.device)
     err = getattr(_cuda.lib(), name)(
         world8.data_ptr(), pose_vec.data_ptr(), tile_start.data_ptr(), gx, gy,

@@ -44,7 +44,8 @@ MAP_CFG = steps.PhaseConfig(use_sil_for_loss=False, sil_thres=0.5, use_l1=True,
 ABSENT = {
     "padded layout + grouped sort":
         "the pair buffers are exact; build_bins emits tile_start, offsets and dst",
-    "attr gather + transpose": "K1 and K2 read per-Gaussian rows through pair_gauss",
+    "attr gather + transpose":
+        "K1, K2 and mapping's K4 and K5 read per-Gaussian rows through pair_gauss",
     "grouped grad gather": "K3 reads the per-pair gradient rows through dst",
     "end-slot totals extract": "K3 writes each Gaussian's total itself",
 }

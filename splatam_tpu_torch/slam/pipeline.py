@@ -87,22 +87,27 @@ def _unported(config: dict) -> None:
     tpu, data = config["tpu"], config["data"]
     checks = [
         ((config["tracking"].get("coarse_to_fine") or {}).get("enabled", False),
-         "coarse-to-fine tracking is not ported yet (ROADMAP, module list item 5)"),
+         "coarse-to-fine tracking is not ported yet (ROADMAP, module list item 1.6)"),
         (int(tpu.get("spatial_shards", 0)) > 1,
-         "row-sharded rendering is not ported yet (ROADMAP, module list item 9)"),
+         "row-sharded rendering is not ported yet (ROADMAP, module list item 1.11)"),
         (config["mapping"].get("use_gaussian_splatting_densification", False),
-         "3DGS densification is not ported yet (ROADMAP, module list item 7)"),
+         "3DGS densification is not ported yet (ROADMAP, module list item 1.8)"),
         ("gradslam_data_cfg" in data,
-         "dataset YAML configs are not ported yet (ROADMAP, module list item 3)"),
+         "dataset YAML configs are not ported yet (ROADMAP, module list item 1.7)"),
         (data["densification_image_height"] != data["desired_image_height"]
          or data["densification_image_width"] != data["desired_image_width"]
          or data["tracking_image_height"] != data["desired_image_height"]
          or data["tracking_image_width"] != data["desired_image_width"],
          "separate tracking/densification resolutions are not ported yet "
-         "(ROADMAP, module list item 5)"),
+         "(ROADMAP, module list item 1.6)"),
         (int(config.get("map_every", 1)) != 1,
          "map_every != 1 belongs to the full rgbd_slam loop, which is not ported yet "
-         "(ROADMAP, module list item 6)"),
+         "(ROADMAP, module list item 1.3)"),
+        (bool(config.get("save_checkpoints", False)),
+         "save_checkpoints belongs to the full rgbd_slam loop, which is not ported yet "
+         "(ROADMAP, module list item 1.3)"),
+        (bool(config.get("load_checkpoint", False)),
+         "load_checkpoint (resuming a run) is not ported yet (ROADMAP, module list item 1.5)"),
     ]
     for bad, msg in checks:
         if bad:
@@ -271,11 +276,17 @@ class SLAMRuntime:
 
 
 def run_frame(rt: SLAMRuntime, time_idx: int) -> None:
-    """One frame of the online loop in rgbd_slam's order: pose init
-    (constant velocity with tracking.forward_prop, else the previous pose),
-    compact, track (or, with tracking.use_gt_poses, take the ground-truth
-    pose), densify, keyframe selection, stage the current frame, map, and
-    append a keyframe every keyframe_every frames."""
+    """One frame of the online loop as bench.py drives it (bench.py:92-148):
+    pose init (constant velocity with tracking.forward_prop, else the
+    previous pose), compact, track (or, with tracking.use_gt_poses, take the
+    ground-truth pose), densify (unless mapping.add_new_gaussians is off),
+    keyframe selection, stage the current frame, map, and append a keyframe
+    every keyframe_every frames.
+
+    This is not rgbd_slam's full loop (splatam_tpu/slam/pipeline.py:1585-1853):
+    like bench.py it adds no keyframe at num_frames - 2 and has no
+    finite-pose gate on keyframes (:1770-1774), no map_every, no checkpoints,
+    no progress reports and no final evaluation."""
     color_np, depth_np, _, gt_pose = rt.dataset[time_idx]
     gt_w2c = np.linalg.inv(gt_pose)
     rt.gt_w2c_all.append(gt_w2c)
@@ -299,7 +310,8 @@ def run_frame(rt: SLAMRuntime, time_idx: int) -> None:
             rt.cam_trans[time_idx] = gt_w2c[:3, 3]
         else:
             rt.track_frame(time_idx, color, depth)
-        rt.densify_frame(time_idx, color, depth)
+        if rt.config["mapping"]["add_new_gaussians"]:
+            rt.densify_frame(time_idx, color, depth)
     selected = rt.select_keyframes(time_idx, depth_np)
     rt._stage_keyframe(rt.kf_scratch_slot, color_np, depth_np)
     rt.map_frame(time_idx, selected)

@@ -19,19 +19,22 @@ from splatam_tpu_torch.core.camera import Camera
 from splatam_tpu_torch.core.gaussians import GaussianMap
 from splatam_tpu_torch.render import bounds, composite, fused_iso
 from splatam_tpu_torch.scripts import harness, scene
+from test_torch_cull import H as ROWS_H, W as ROWS_W, _projected_rows, _world_family
 
 CSRC = Path(bounds.__file__).resolve().parents[1] / "csrc"
 # (file, device function) -> sha256 prefix of the text the counts were made from
 COUNTED = {
-    ("common.cuh", "composite_tile"): "4be9b73dca984eac",
+    ("common.cuh", "composite_pair"): "06abd6ae07b31167",
+    ("common.cuh", "walk_words"): "4d9a0be849894d8e",
     ("common.cuh", "project_iso"): "6ceb4c90acf8407e",
-    ("common.cuh", "stage_pair"): "bd387b6753c39811",
+    ("common.cuh", "ProjectedRows"): "a865b6809008dd46",
+    ("common.cuh", "stage_values"): "e98719a8069695f1",
+    ("common.cuh", "stage_pair"): "12dd64095d1f7438",
     ("composite_backward.cu", "composite_backward_kernel"): "bc0eeaaee2074f75",
-    ("composite_forward.cu", "composite_pair"): "06abd6ae07b31167",
-    ("fused_backward.cu", "fused_backward_kernel"): "7bba1d755741fe64",
+    ("fused_backward.cu", "fused_backward_kernel"): "80fe3a0bf7d58e41",
     ("fused_backward.cu", "chain_to_world"): "6660f7970abd6bb6",
 }
-# The device code of K1's and K2's cull, whose plain version is written out
+# The device code of K1's, K2's and K4's cull, whose plain version is written out
 # again in render/composite.py (cull_rows_plain, cull_warp_mask, warp_pixels):
 # the cull's kept-step counts and its CPU tests speak for the kernels only
 # while the two say the same.
@@ -194,6 +197,25 @@ def test_cull_step_counts_match_a_brute_force_count(warp_w):
     assert (wc.fwd_visited_steps, wc.bwd_visited_steps) == (seen_f, seen_b)
     assert 0 < wc.fwd_warp_steps <= wc.fwd_kept_steps < wc.fwd_visited_steps
     assert 0 < wc.bwd_warp_steps <= wc.bwd_kept_steps < wc.bwd_visited_steps
+
+
+@pytest.mark.parametrize("family", ["random", "behind_near_plane", "det_zero", "clamped"])
+def test_cull_step_counts_on_pairs_projected_from_world_rows(family):
+    """K4's needed, kept and uncut (pair, warp) steps (what chip_smoke.py
+    reports from walk_counts) against the loop over every (tile, warp, pair),
+    on pairs projected from world rows that take the projection's other
+    branches: behind the near plane, det == 0, clamped txtz / tytz."""
+    w8, pose, tile_start = _world_family(family, seed=2)
+    rows = _projected_rows(w8, pose)
+    xy, conic, op = rows[:, 0:2], rows[:, 2:5], rows[:, 5]
+    cam = SimpleNamespace(width=ROWS_W, height=ROWS_H)
+    ncon = fused_iso.fused_forward_plain(w8, pose, tile_start, ROWS_W, ROWS_H)[-1]
+    wc = bounds.walk_counts(xy, conic, op, tile_start, ROWS_W, ROWS_H, warp_w=composite.WARP_W)
+    need, kept_f, kept_b, seen_f, seen_b = _brute_force_steps(xy, conic, op, tile_start, cam,
+                                                              ncon, composite.WARP_W)
+    assert (wc.fwd_warp_steps, wc.fwd_kept_steps, wc.bwd_kept_steps) == (need, kept_f, kept_b)
+    assert (wc.fwd_visited_steps, wc.bwd_visited_steps) == (seen_f, seen_b)
+    assert 0 < wc.fwd_warp_steps <= wc.fwd_kept_steps < wc.fwd_visited_steps
 
 
 def test_kernel_symbols_are_the_global_functions_of_csrc():

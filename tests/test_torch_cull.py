@@ -1,6 +1,6 @@
-"""The warp-granular cull of K1 and K2 (render/composite.py cull_rows_plain,
-cull_warp_mask; the device functions pair_reach and reach_warp_mask in
-csrc/common.cuh repeat them), on the CPU.
+"""The warp-granular cull of K1, K2 and K4 (render/composite.py
+cull_rows_plain, cull_warp_mask; the device functions pair_reach and
+reach_warp_mask in csrc/common.cuh repeat them), on the CPU.
 
 The cull may only skip what the walk skips anyway. Two properties, over
 random and adversarial per-pair rows (numpy seeds), at both warp shapes
@@ -9,6 +9,10 @@ random and adversarial per-pair rows (numpy seeds), at both warp shapes
     in a warp the cull excludes;
   - the plain forward and backward walks with the culled (pair, warp) steps
     masked out equal the unmasked ones exactly (torch.equal).
+K4 culls the pairs it projects itself: the same two properties are held on
+world rows whose projection takes every branch of project_pairs_plain
+(behind the near plane, det == 0, clamped txtz / tytz, scales from 0 to
+overflow, centres far off the screen).
 """
 import math
 
@@ -16,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from splatam_tpu_torch.render import composite
+from splatam_tpu_torch.render import composite, fused_iso
 
 W, H = 40, 28  # 3 x 2 tiles, ragged on the right and at the bottom
 GX, GY = 3, 2
@@ -194,3 +198,131 @@ def test_plain_backward_is_finite_on_indefinite_conics():
     g = torch.randn((6, H, W), generator=torch.Generator().manual_seed(2))
     d = composite.composite_backward_plain(rows, None, tile_start, W, H, state, g)
     assert bool(torch.isfinite(d).all()) and float(d.abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# K4: the cull on pairs projected inside the kernel
+# ---------------------------------------------------------------------------
+
+FX = 32.0  # fx = fy; the image centre is the principal point
+WORLD_FAMILIES = ("random", "behind_near_plane", "det_zero", "clamped", "scales", "opacity_edges",
+                  "far", "overflow")
+# Families whose fused forward is finite everywhere (the card tests' choice).
+WORLD_FINITE = tuple(f for f in WORLD_FAMILIES if f != "overflow")
+
+
+def _world_family(name, seed=0):
+    """(world8 [P, 8] per sorted pair, pose vector [24], tile_start) on the
+    W x H image. Each pair's mean is placed in the camera frame so that it
+    projects around its own tile, then moved to the world by the pose."""
+    rng = np.random.default_rng(seed)
+    n = TILES * PER_TILE
+    k = np.arange(n)
+    tile = np.repeat(np.arange(TILES), PER_TILE)
+    u = (tile % GX) * 16 + rng.uniform(-4, 20, n)  # target pixel
+    v = (tile // GX) * 16 + rng.uniform(-4, 20, n)
+    z = rng.uniform(1.0, 4.0, n)
+    s2 = rng.uniform(0.01, 0.15, n) ** 2
+    op = rng.uniform(0.02, 0.95, n)
+    identity = name == "det_zero"
+    if name == "random":
+        pass
+    elif name == "behind_near_plane":  # tz <= 0.2 projects at safe_tz = 1 and composites there
+        z = np.asarray([0.2, 0.19999, 0.0, -0.5, -3.0, 0.2001, 1.5], np.float32)[k % 7]
+    elif name == "det_zero":  # c00 = c11 = 0 exactly: s2 j00^2 = -0.3 with j02 = j12 = 0
+        hit = k % 3 == 0
+        u, v = np.where(hit, W / 2 - 0.5, u), np.where(hit, H / 2 - 0.5, v)
+        z = np.where(hit, 2.0, z)
+        s2 = np.where(hit, np.float32(-0.3) / np.float32((FX / 2.0) ** 2),
+                      np.where(k % 3 == 1, -s2, s2))  # and negative scales beside them
+    elif name == "clamped":  # |x / z| and |y / z| past limx, limy: txtz, tytz clamp
+        u = u + rng.choice([-400.0, -60.0, 60.0, 400.0], n)
+        v = v + rng.choice([-300.0, -40.0, 0.0, 40.0, 300.0], n)
+        s2 = s2 * rng.choice([1.0, 100.0], n)
+    elif name == "scales":  # from a point to footprints far larger than the image
+        s2 = np.asarray([0.0, 1e-12, 1e-2, 1.0, 1e4, 1e12], np.float32)[k % 6]
+        op = rng.uniform(0.3, 1.0, n)
+    elif name == "opacity_edges":
+        edge = np.float32(1.0 / 255.0)
+        vals = [0.0, 1e-4, np.nextafter(edge, np.float32(0)), edge,
+                np.nextafter(edge, np.float32(1)), 0.0040, 0.99, 0.9900001, 1.0, 1.7, 30.0, -0.5]
+        op = np.asarray(vals, np.float32)[k % len(vals)]
+    elif name == "far":  # centres up to 1e8 pixels away, just in front of the near plane
+        u = u * rng.choice([1.0, 1e3, -1e5, 1e8], n)
+        z = np.where(k % 2 == 0, 0.2001, z)
+    elif name == "overflow":  # s2 so large that det, the conic or power overflow
+        s2 = np.asarray([1e20, 3e38, np.inf, np.nan, 1e30, 1.0], np.float32)[k % 6]
+    else:
+        raise KeyError(name)
+    cam = np.stack([(u + 0.5 - W / 2) * z / FX, (v + 0.5 - H / 2) * z / FX, z], 1)
+    q = torch.tensor([1.0, 0.0, 0.0, 0.0] if identity else [0.99, 0.02, -0.03, 0.01])
+    tr = torch.zeros(3) if identity else torch.tensor([0.02, -0.01, 0.03])
+    rmat = fused_iso.build_rotation(fused_iso.normalize(q)[None])[0]
+    world = (torch.tensor(cam, dtype=torch.float32) - tr) @ rmat  # R^T (p - t)
+    w8 = torch.zeros((n, 8))
+    w8[:, 0:3] = world
+    w8[:, 3] = torch.tensor(np.asarray(s2, np.float32))
+    w8[:, 4] = torch.tensor(np.asarray(op, np.float32))
+    w8[:, 5:8] = torch.tensor(rng.uniform(0, 1, (n, 3)).astype(np.float32))
+    limx, limy = 1.3 * W / (2 * FX), 1.3 * H / (2 * FX)
+    pose = fused_iso.make_pose_vec(rmat, tr, W, H, FX, FX, W / 2.0, H / 2.0, limx, limy)
+    return w8, pose, torch.arange(TILES + 1, dtype=torch.int32) * PER_TILE
+
+
+def _projected_rows(w8, pose):
+    xy, conic, op, chans = fused_iso.project_pairs_plain(w8, pose, W, H)
+    return torch.cat([xy, conic, op[:, None], chans], 1)
+
+
+def test_world_families_take_every_branch_of_the_projection():
+    """The families mean what their names say: pairs at or behind the near
+    plane, det == 0, clamped txtz / tytz, centres the rule calls not tame."""
+    tz = lambda w8, pose: w8[:, 0:3] @ pose[6:9] + pose[11]  # noqa: E731
+    w8, pose, _ = _world_family("behind_near_plane")
+    assert bool((tz(w8, pose) <= 0.2).sum() > w8.shape[0] // 2)
+    rows = _projected_rows(*_world_family("det_zero")[:2])
+    flat = (rows[:, 2:5] == 0).all(1)  # inv_det = 1 and a zero covariance: power = 0 everywhere
+    assert int(flat.sum()) == rows.shape[0] // 3
+    assert bool((rows[~flat, 2] < 0).any())
+    w8, pose, _ = _world_family("clamped")
+    cam = w8[:, 0:3] @ pose[0:9].reshape(3, 3).T + pose[9:12]
+    assert bool(((cam[:, 0] / cam[:, 2]).abs() > pose[16]).any())
+    assert bool(((cam[:, 1] / cam[:, 2]).abs() > pose[17]).any())
+    rows = _projected_rows(*_world_family("far")[:2])
+    assert bool((rows[:, 0].abs() > composite.CULL_MAX_COORD).any())
+    rows = _projected_rows(*_world_family("overflow")[:2])
+    assert not bool(torch.isfinite(rows[:, 2:5]).all())
+
+
+@pytest.mark.parametrize("family", WORLD_FAMILIES)
+def test_cull_never_excludes_an_applied_pixel_of_a_projected_pair(family):
+    for seed in range(3):
+        w8, pose, tile_start = _world_family(family, seed)
+        rows = _projected_rows(w8, pose)
+        box = composite.cull_rows_plain(rows[:, 0:2], rows[:, 2:5], rows[:, 5], tile_start, W)
+        applies = _applies(rows, tile_start)
+        for warp_w in (16, 8):
+            missed = applies & ~composite.cull_visit(box, warp_w)
+            assert not bool(missed.any()), (family, warp_w, int(missed.sum()))
+        if family in ("random", "behind_near_plane", "clamped", "opacity_edges"):
+            assert int(applies.sum()) > 0
+            assert int((~composite.cull_visit(box, composite.WARP_W)).sum()) > 0
+
+
+@pytest.mark.parametrize("family", WORLD_FAMILIES)
+def test_culled_fused_forward_equals_the_unculled_one(family):
+    """K4's plain version with the cull's (pair, warp) steps masked out of
+    its walk equals the unmasked walk bit for bit, n_contrib included, at
+    both warp shapes and in both input modes."""
+    w8, pose, tile_start = _world_family(family, seed=5)
+    ref = fused_iso.fused_forward_plain(w8, pose, tile_start, W, H)
+    for warp_w in (16, 8):
+        got = fused_iso.fused_forward_plain(w8, pose, tile_start, W, H, cull=warp_w)
+        assert torch.equal(got.nan_to_num(nan=-7.0), ref.nan_to_num(nan=-7.0)), (family, warp_w)
+    perm = torch.randperm(w8.shape[0], generator=torch.Generator().manual_seed(1)).to(torch.int32)
+    table = torch.empty_like(w8)
+    table[perm.long()] = w8
+    got = fused_iso.fused_forward_plain(table, pose, tile_start, W, H, perm, cull=composite.WARP_W)
+    assert torch.equal(got.nan_to_num(nan=-7.0), ref.nan_to_num(nan=-7.0))
+    if family in WORLD_FINITE:
+        assert bool(torch.isfinite(ref).all()) and float(ref[5].max()) > 0

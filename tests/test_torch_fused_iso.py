@@ -8,7 +8,10 @@ grads 3e-4 * max|grad|; depth and silhouette images 2e-4 and 1e-4. The
 tiles backend composites with log-space chunked products, the port
 sequentially per pixel, so the two differ by float32 reassociation.
 The kernels themselves are held to the plain versions in
-tests/test_torch_kernels.py (CUDA only).
+tests/test_torch_kernels.py (CUDA only). K4 and K5 read the world rows per
+sorted pair or per Gaussian through the pairs' Gaussian indices: the plain
+versions' two modes must agree exactly, and mapping must take the second
+(no per-pair copy of the rows).
 """
 import numpy as np
 import jax
@@ -154,3 +157,58 @@ def test_plain_backward_is_the_gradient_of_plain_forward():
     (ref,) = torch.autograd.grad(out[:6], w8, g)
     got = fused_iso.fused_backward_plain(ps.world8, pose, ps.tile_start, 64, 48, out.detach(), g)
     torch.testing.assert_close(got, ref, atol=1e-4 * float(ref.abs().max()), rtol=0)
+
+
+def test_plain_versions_agree_in_both_input_modes():
+    """fused_forward_plain and fused_backward_plain on per-Gaussian rows read
+    through pair_gauss equal the same calls on the gathered per-pair rows
+    exactly (the gather is the only difference)."""
+    _, tgm = _maps(n=200, seed=8)
+    ps, pose = _pair_inputs(tgm, CAM)
+    table = fused_iso.pack_world8(tgm.means3d, tgm.logit_opacities, tgm.log_scales,
+                                  tgm.rgb_colors, tgm.active)
+    assert ps.pair_gauss.dtype == torch.int32 and table.shape[0] != ps.n_pairs
+    assert torch.equal(table[ps.pair_gauss.long()], ps.world8)
+    g = torch.tensor(np.random.default_rng(9).normal(size=(6, 48, 64)).astype(np.float32))
+    out = fused_iso.fused_forward(ps.world8, pose, ps.tile_start, 64, 48)
+    assert torch.equal(fused_iso.fused_forward(table, pose, ps.tile_start, 64, 48, ps.pair_gauss),
+                       out)
+    d = fused_iso.fused_backward(ps.world8, pose, ps.tile_start, 64, 48, out, g)
+    d_idx = fused_iso.fused_backward(table, pose, ps.tile_start, 64, 48, out, g, ps.pair_gauss)
+    assert d_idx.shape == (ps.n_pairs, 8) and torch.equal(d_idx, d)
+    assert float(d.abs().max()) > 0
+
+
+def test_mapping_render_reads_the_rows_through_the_index(monkeypatch):
+    """FusedGauss hands K4 and K5 the per-Gaussian rows [N, 8] and the
+    structure's pair_gauss, and its gradients are those of the gathered-rows
+    formulation (autograd through the gather and the plain forward)."""
+    _, tgm = _maps(n=200, seed=10)
+    q, t = torch.tensor(Q), torch.tensor(T)
+    ps = steps.loss_pair_structure(tgm, q, t, CAM)
+    seen = []
+    fwd, bwd = fused_iso.fused_forward, fused_iso.fused_backward
+
+    def spy(fn):
+        def call(world8, *args):
+            seen.append((world8.shape, args[-1]))
+            return fn(world8, *args)
+        return call
+
+    monkeypatch.setattr(fused_iso, "fused_forward", spy(fwd))
+    monkeypatch.setattr(fused_iso, "fused_backward", spy(bwd))
+    params = tuple(x.clone().requires_grad_(True) for x in (
+        tgm.means3d, tgm.logit_opacities, tgm.log_scales, tgm.rgb_colors))
+    img = fused_iso.composite_fused_gauss(*params, tgm.active, ps, CAM, q, t)
+    g = torch.tensor(np.random.default_rng(11).normal(size=(6, 48, 64)).astype(np.float32))
+    grads = torch.autograd.grad(img, params, g)
+    assert [s for s, _ in seen] == [(tgm.capacity, 8)] * 2
+    assert all(idx is ps.pair_gauss for _, idx in seen)
+
+    rows = fused_iso.pack_world8(*params, tgm.active)
+    _, pose = _pair_inputs(tgm, CAM)
+    ref_img = fwd(rows[ps.pair_gauss.long()], pose, ps.tile_start, 64, 48)[:6]
+    ref = torch.autograd.grad(ref_img, params, g)
+    assert torch.equal(img, ref_img.detach())
+    for mine, want in zip(grads, ref):
+        torch.testing.assert_close(mine, want, atol=1e-4 * float(want.abs().max()), rtol=0)

@@ -21,7 +21,13 @@ fixed order: two launches must be equal bit for bit. K1 and K2 cull the
 (pair, warp) steps no pixel of the warp can apply: K1 must equal its plain
 version bit for bit, and K2, whose sums also have a fixed order, must be
 equal bit for bit across two launches, on adversarial rows (the families of
-test_torch_cull.py) and on ragged tiles several batches deep.
+test_torch_cull.py) and on ragged tiles several batches deep. K4 runs the
+same walk and cull behind its in-kernel projection: it must equal its plain
+version bit for bit on ragged tiles several batches deep and on world
+rows whose projection takes every branch (behind the near plane, det == 0,
+clamped, scales from 0 to 1e12, centres far off the screen), and K4 and K5
+on per-Gaussian rows read through pair_gauss must equal their per-pair mode
+bit for bit.
 """
 import numpy as np
 import pytest
@@ -32,7 +38,8 @@ from splatam_tpu_torch.core.gaussians import GaussianMap
 from splatam_tpu_torch.render import api, binning, composite, fused_iso, probes
 from splatam_tpu_torch.scripts import scene
 from splatam_tpu_torch.slam import steps
-from test_torch_cull import FAMILIES, H as ROWS_H, W as ROWS_W, _family
+from test_torch_cull import (FAMILIES, H as ROWS_H, W as ROWS_W, WORLD_FINITE, _family,
+                             _world_family)
 
 pytestmark = pytest.mark.cuda
 
@@ -428,3 +435,70 @@ def test_composite_backward_one_channel_at_a_time(cuda):
         assert torch.equal(d, again), f"channel {c}: two launches differ"
         assert _rel(d, ref) <= 1e-4, f"channel {c}"
         assert bool((d[past] == 0).all()), f"channel {c}: a pair past the reach is not 0"
+
+
+def _scattered_table(rows, seed):
+    """(table, index): the per-pair rows scattered into a table in a seeded
+    random order, and the int32 index that gathers them back."""
+    gen = torch.Generator(rows.device).manual_seed(seed)
+    perm = torch.randperm(rows.shape[0], device=rows.device, generator=gen).to(torch.int32)
+    table = torch.empty_like(rows)
+    table[perm.long()] = rows
+    return table, perm
+
+
+def test_fused_kernels_equal_in_both_input_modes(cuda):
+    """K4 and K5 on the map's per-Gaussian rows through the structure's
+    pair_gauss (mapping's inputs) equal, bit for bit, the same kernels on the
+    gathered per-pair rows (tracking's inputs)."""
+    gm = _map(cuda, seed=12)
+    q, t = _pose(cuda)
+    ps, pose = scene.fused_inputs(gm, q, t, CAM)
+    w, h, ts = CAM.width, CAM.height, ps.tile_start
+    table = fused_iso.pack_world8(gm.means3d, gm.logit_opacities, gm.log_scales, gm.rgb_colors,
+                                  gm.active)
+    assert torch.equal(table[ps.pair_gauss.long()], ps.world8)
+    before = fused_iso.fused_forward.launches, fused_iso.fused_backward.launches
+    state = fused_iso.fused_forward(ps.world8, pose, ts, w, h)
+    assert torch.equal(fused_iso.fused_forward(table, pose, ts, w, h, ps.pair_gauss), state)
+    g = torch.randn((6, h, w), device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    d = fused_iso.fused_backward(ps.world8, pose, ts, w, h, state, g)
+    d_idx = fused_iso.fused_backward(table, pose, ts, w, h, state, g, ps.pair_gauss)
+    torch.cuda.synchronize()
+    assert d_idx.shape == (ps.n_pairs, 8) and torch.equal(d_idx, d)
+    assert (fused_iso.fused_forward.launches, fused_iso.fused_backward.launches) == (
+        before[0] + 2, before[1] + 2)
+    with pytest.raises(ValueError, match="pair_gauss"):
+        fused_iso.fused_forward(table, pose, ts, w, h, ps.pair_gauss.long())
+
+
+def test_fused_forward_matches_plain_on_deep_ragged_tiles(cuda):
+    cam, ps, pose = _deep_scene(cuda)
+    w, h, ts = cam.width, cam.height, ps.tile_start
+    assert int((ts[1:] - ts[:-1]).max()) > 2 * 256
+    got = fused_iso.fused_forward(ps.world8, pose, ts, w, h)
+    _assert_same_image(got, fused_iso.fused_forward_plain(ps.world8, pose, ts, w, h))
+    table, idx = _scattered_table(ps.world8, 4)
+    assert torch.equal(fused_iso.fused_forward(table, pose, ts, w, h, idx), got)
+    assert torch.equal(probes.fwd2(ps.world8, pose, ts, w, h), got)
+
+
+@pytest.mark.parametrize("family", WORLD_FINITE)
+def test_fused_forward_on_adversarial_world_rows(cuda, family):
+    """K4 equal to its plain version bit for bit (as K1 is: the same walk,
+    and a projection that rounds like the plain one) on world rows whose
+    projection the cull must not get wrong, per pair and through pair_gauss;
+    fwd2 equal to K4 and math_only to its plain version on the same rows; on
+    a 40x28 image (ragged tiles)."""
+    w8, pose, ts = (x.to(cuda) for x in _world_family(family, seed=5))
+    w, h = ROWS_W, ROWS_H
+    ref = fused_iso.fused_forward_plain(w8, pose, ts, w, h)
+    got = fused_iso.fused_forward(w8, pose, ts, w, h)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _assert_same_image(got, ref)
+    table, idx = _scattered_table(w8, 6)
+    assert torch.equal(fused_iso.fused_forward(table, pose, ts, w, h, idx), got)
+    assert torch.equal(probes.fwd2(w8, pose, ts, w, h), got)
+    _assert_same_image(probes.math_only(w8, pose, ts, w, h),
+                       probes.math_only_plain(w8, pose, ts, w, h))

@@ -135,6 +135,22 @@ def test_math_only_plain_matches_pallas_on_remapped_rows(both):
         np.concatenate([s + np.arange(k) % C for s, k in zip(starts, lens)]))
 
 
+def test_probe_walks_do_not_change_under_the_cull(both):
+    """fwd2 and math_only run K4's culled walk on the card (math_only takes
+    the warp masks of its first chunk once and walks them in every round):
+    the cull must change no bit of either plain image, and math_only's rows
+    are K4's index mode with pair_gauss = first_chunk_rows."""
+    _, _, port = both
+    args = (port.pose, port.tile_start, W, H)
+    remap = probes.first_chunk_rows(port.tile_start, port.n_pairs).int()
+    assert torch.equal(
+        probes.math_only_plain(port.world8, *args),
+        fused_iso.fused_forward_plain(port.world8, *args, pair_gauss=remap, cull=composite.WARP_W))
+    assert torch.equal(
+        probes.fwd2_plain(port.world8, *args),
+        fused_iso.fused_forward_plain(port.world8, *args, cull=composite.WARP_W))
+
+
 def _dma_reference(world8, pad_start, lens, b):
     """The TPU kernels' sums: per tile, lane l adds row 0 of columns
     s + i*b*C + l for every block i, padding columns (past lens) masked."""

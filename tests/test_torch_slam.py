@@ -60,7 +60,8 @@ def _config(tmp_path, **overrides):
 def _jax_frame(rt, time_idx):
     """rgbd_slam's frame (splatam_tpu/slam/pipeline.py:1642-1760): pose
     init honouring tracking.forward_prop, tracking or the ground-truth pose
-    (tracking.use_gt_poses), densify, keyframes, map."""
+    (tracking.use_gt_poses), densify unless mapping.add_new_gaussians is off
+    (:1732), keyframes, map."""
     color_np, depth_np, _, gt_pose = rt.dataset[time_idx]
     gt_w2c = np.linalg.inv(gt_pose)
     rt.gt_w2c_all.append(gt_w2c)
@@ -83,7 +84,8 @@ def _jax_frame(rt, time_idx):
             rt.cam_trans[time_idx] = gt_w2c[:3, 3]
         else:
             rt.track_frame(time_idx, color, depth)
-        rt.densify_frame(time_idx, color, depth)
+        if rt.config["mapping"]["add_new_gaussians"]:
+            rt.densify_frame(time_idx, color, depth)
     selected = rt.select_keyframes(time_idx, depth_np)
     rt._stage_keyframe(rt.kf_scratch_slot, color_np, depth_np)
     rt.map_frame(time_idx, selected)
@@ -161,11 +163,25 @@ def test_use_gt_poses_skips_tracking(tmp_path):
     np.testing.assert_allclose(rt.cam_trans[1], rt.gt_w2c_all[1][:3, 3], atol=1e-6)
 
 
+def test_add_new_gaussians_off_skips_densification(tmp_path):
+    """mapping.add_new_gaussians=False: no frame densifies (the reference's
+    gate, pipeline.py:1732), so the map never grows; poses and counts equal
+    the JAX package's."""
+    rt, jrt, t_active, j_active = run_both(tmp_path, mapping={"add_new_gaussians": False})
+    assert t_active == j_active
+    assert max(t_active) <= t_active[0]  # pruning may remove, nothing adds
+    np.testing.assert_allclose(rt.cam_rots, jrt.cam_rots, atol=1e-4)
+    np.testing.assert_allclose(rt.cam_trans, jrt.cam_trans, atol=1e-4)
+    assert np.abs(rt.cam_trans[-1]).max() > 1e-3  # tracking still ran
+
+
 @pytest.mark.parametrize("override, item", [
-    ({"tracking": {"coarse_to_fine": {"enabled": True}}}, "module list item 5"),
-    ({"tpu": {"spatial_shards": 2}}, "module list item 9"),
-    ({"mapping": {"use_gaussian_splatting_densification": True}}, "module list item 7"),
-    ({"map_every": 2}, "module list item 6"),
+    ({"tracking": {"coarse_to_fine": {"enabled": True}}}, "module list item 1.6"),
+    ({"tpu": {"spatial_shards": 2}}, "module list item 1.11"),
+    ({"mapping": {"use_gaussian_splatting_densification": True}}, "module list item 1.8"),
+    ({"map_every": 2}, "module list item 1.3"),
+    ({"save_checkpoints": True}, "module list item 1.3"),
+    ({"load_checkpoint": True}, "module list item 1.5"),
 ])
 def test_unported_configurations_raise(tmp_path, override, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -1,0 +1,79 @@
+"""Config keys the port carries, each held against the JAX package end to
+end: 2 frames of test_torch_slam.py's micro config (6 tracking and 8 mapping
+iterations at 64x48, rebin_every=8, so the fused path) with one key changed.
+
+Same tolerance as test_slam_loop_matches_jax: poses within 1e-4, equal
+active counts per frame, equal keyframes. Each case also checks that its
+key changed the run (against the unchanged config's poses or counts, run
+once per module in the port only), so a key that is silently ignored by
+both packages does not pass for parity.
+"""
+import numpy as np
+import pytest
+import jax  # noqa: F401  (both frameworks in one process: import both first)
+import torch
+
+from splatam_tpu_torch.slam.config import seed_everything
+from splatam_tpu_torch.slam.pipeline import SLAMRuntime, run_frame
+from test_torch_slam import _config, run_both
+
+torch.set_num_threads(1)
+
+FRAMES = 2
+PRUNING = dict(start_after=0, remove_big_after=0, stop_after=6, prune_every=2,
+               removal_opacity_threshold=0.49, final_removal_opacity_threshold=0.005,
+               reset_opacities=True, reset_opacities_every=5)
+CASES = {
+    # the 10x-median outlier mask in both phases, floored at 5 cm
+    "outlier_mask": dict(tracking={"ignore_outlier_depth_loss": True, "outlier_floor_m": 0.05},
+                         mapping={"ignore_outlier_depth_loss": True, "outlier_floor_m": 0.05}),
+    # pixels whose normalised depth variance is above (5 cm)^2 leave the tracking loss
+    "depth_uncertainty": dict(tracking={"depth_uncertainty_thres": 0.05}),
+    # a threshold no frame meets: tracking runs its one-time doubling (12 iterations)
+    "depth_loss_doubling": dict(tracking={"use_depth_loss_thres": True,
+                                          "depth_loss_thres": 1e-6}),
+    "lr_decay": dict(tracking={"lr_decay_frac": 0.1}),
+    # frame 0 maps 14 iterations instead of 8
+    "bootstrap": dict(mapping={"bootstrap_num_iters": 14, "bootstrap_frames": 1}),
+    "current_frame_prob": dict(mapping={"current_frame_prob": 0.6}),
+    # pruning at iterations 0, 2, 4 (opacity below 0.49: the Gaussians whose two or four
+    # Adam steps went down) and 6 (the final threshold), remove-big on, opacities reset to
+    # 0.01 at iteration 5. After a reset the silhouette is below tracking's sil_thres
+    # everywhere, so frame 1's tracking has no pixels and the camera stays: this case holds
+    # the pruning decisions (the active counts) and the reset, not the poses
+    "prune_and_reset": dict(mapping={"pruning_dict": PRUNING}),
+}
+
+
+@pytest.fixture(scope="module")
+def base(tmp_path_factory):
+    """The port's run of the unchanged micro config."""
+    seed_everything(0)
+    rt = SLAMRuntime(_config(tmp_path_factory.mktemp("base")), "cpu")
+    active = []
+    for i in range(FRAMES):
+        run_frame(rt, i)
+        active.append(rt.gm.num_active())
+    return rt, active
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_config_key_matches_jax(tmp_path, base, case):
+    rt, jrt, t_active, j_active = run_both(tmp_path, frames=FRAMES, **CASES[case])
+    assert t_active == j_active
+    np.testing.assert_allclose(rt.cam_rots[:FRAMES], jrt.cam_rots[:FRAMES], atol=1e-4)
+    np.testing.assert_allclose(rt.cam_trans[:FRAMES], jrt.cam_trans[:FRAMES], atol=1e-4)
+    assert [k["id"] for k in rt.keyframe_list] == [k["id"] for k in jrt.keyframe_list]
+    assert np.isfinite(rt.cam_trans).all()
+    if case == "prune_and_reset":
+        assert t_active[0] < base[1][0]  # pruning past iteration 0 removed Gaussians
+        assert float(rt.gm.logit_opacities[rt.gm.active].min()) < -4.0  # reset to logit(0.01)
+    else:
+        assert np.abs(rt.cam_trans[1]).max() > 1e-3  # the camera moved
+    base_rt, base_active = base
+    moved = max(np.abs(rt.cam_trans[:FRAMES] - base_rt.cam_trans[:FRAMES]).max(),
+                np.abs(rt.cam_rots[:FRAMES] - base_rt.cam_rots[:FRAMES]).max())
+    means_moved = (rt.gm.span() != base_rt.gm.span()
+                   or float((rt.gm.means3d[:rt.gm.span()]
+                             - base_rt.gm.means3d[:rt.gm.span()]).abs().max()) > 0)
+    assert moved > 1e-6 or t_active != base_active or means_moved, "the key changed nothing"
