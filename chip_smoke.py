@@ -56,12 +56,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
      versions, their times in turns beside K4's, bounds and shares;
  10. `profile_iter` in summary and --stages mode at 1200x680 with 950,272
      Gaussians (about path 1's steady map): wall, event and device-busy
-     time of each stage.
+     time of each stage;
+ 11. path 4: the full online entry point, `rgbd_slam`, on path 1's
+     configuration for 7 frames with a checkpoint every 3 frames, in a
+     temporary directory: (a) the run (K1, K4, K5 and K3 at 8 columns
+     launched, K2, K3 at 11 and the probes not; finite poses; params.npz,
+     params3.npz, params6.npz and keyframe_time_indices3.npy with the JAX
+     package's keys; keyframes 0, 4 and 5, the last the num_frames - 2 one;
+     finite PSNR, MS-SSIM, LPIPS, depth and ATE); (b) `eval_sequence` again
+     on the saved params.npz (K1 alone launched), whose metrics must equal
+     (a)'s bit for bit, then one frame's eval split into render, MS-SSIM and
+     LPIPS times; (c) a resume from checkpoint 3 to the end (finite poses);
+     (d) `export_ply` and `load_ply` give back the saved arrays.
 A device-busy time (phases 6, 7, 10) counts only where torch.profiler
 recorded every launch of the port's kernels that the wrappers counted in
 its window; elsewhere it prints as unverified.
-Each path's launch counts (and those of phase 9's probe run) are set to 0
-just before it and read just after; the kernels the path must launch have
+Each path's launch counts (and those of phase 9's probe run, and of path
+4's eval and resume) are set to 0 just before it and read just after; the kernels the path must launch have
 to be > 0 from frame 1 on, the fused kernels must stay at 0 on paths 2 and
 3 (the routing), and the probe kernels at 0 on paths 1-3.
 Prints the kernel table as one JSON line, the card line, and last
@@ -69,16 +80,28 @@ Prints the kernel table as one JSON line, the card line, and last
 """
 from __future__ import annotations
 
+import atexit
+import copy
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FRAMES = 4  # path 1
 FRAMES_GENERIC = 3  # paths 2 and 3
+FRAMES_SLAM, CKPT_EVERY = 7, 3  # path 4: checkpoints at frames 0, 3 and 6
+SLAM_KEYFRAMES = [0, 4, 5]  # keyframe_every=5, and num_frames - 2
+RESUME_AT = 3
+# params.npz's keys (tests/test_slam_pipeline.py:58-64)
+PARAM_KEYS = ("means3D", "rgb_colors", "unnorm_rotations", "logit_opacities", "log_scales",
+              "cam_unnorm_rots", "cam_trans", "timestep", "intrinsics", "w2c",
+              "gt_w2c_all_frames", "keyframe_time_indices")
 HEIGHT, WIDTH = 680, 1200
 
 # name -> (TPU kernel it replaces, CUDA source); segment_reduce11 is K3
@@ -151,6 +174,11 @@ PATH_KERNELS = {
                ("fused_forward", "fused_backward", "segment_reduce", *PROBES)),
     "path 3": (("composite_forward", "composite_backward", "segment_reduce11"),
                ("fused_forward", "fused_backward", "segment_reduce", *PROBES)),
+    "path 4": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
+               ("composite_backward", "segment_reduce11", *PROBES)),
+    "path 4 eval": (("composite_forward",),
+                    ("composite_backward", "fused_forward", "fused_backward", "segment_reduce",
+                     "segment_reduce11", *PROBES)),
     "probes": (("fused_forward", *PROBES),
                ("composite_forward", "composite_backward", "fused_backward", "segment_reduce",
                 "segment_reduce11")),
@@ -656,12 +684,13 @@ def small_scene(device):
     return gm, q, t, Camera(height=120, width=160, fx=150.0, fy=150.0, cx=80.0, cy=60.0)
 
 
-def bench_config(**overrides):
-    """bench.py:48-78's settings for the port; overrides update a section
-    (dict) or set a key."""
+def bench_config(workdir: str, **overrides):
+    """bench.py:48-78's settings for the port, its run directory under
+    `workdir`; overrides update a section (dict) or set a key."""
     from splatam_tpu_torch.slam.config import load_experiment_config
 
     config = load_experiment_config(os.path.join(ROOT, "configs", "synthetic", "splatam.py"))
+    config["workdir"] = workdir
     config["data"].update(desired_image_height=HEIGHT, desired_image_width=WIDTH,
                           num_frames=12)
     config["tracking"]["num_iters"] = 40
@@ -802,6 +831,188 @@ def run_probes(device):
     return launches, *kept
 
 
+def check_launches(name: str, launches: dict, label: str | None = None) -> None:
+    """PATH_KERNELS[name]'s kernels launched, the others not."""
+    must, never = PATH_KERNELS[name]
+    label = label or name
+    print(f"{label}: launches={launches}", flush=True)
+    if min(launches[k] for k in must) == 0:
+        fail(f"{label}: a kernel of the path was never launched: {launches}")
+    if any(launches[k] for k in never):
+        fail(f"{label}: a kernel off the path was launched: {launches}")
+
+
+QUALITY = ("psnr", "ms_ssim", "lpips_synthetic", "depth_l1", "depth_rmse", "ate_rmse")
+
+
+def report_quality(label: str, metrics: dict, card: str) -> None:
+    """Print the final evaluation's metrics; fatal unless all are finite."""
+    vals = [metrics[k] for k in QUALITY] + list(metrics.get("runtime", {}).values())
+    rt = metrics.get("runtime")
+    runtime = (f"; tracking {rt['tracking_iter_ms']:.2f} ms/iteration, "
+               f"{rt['tracking_frame_s']:.3f} s/frame; mapping {rt['mapping_iter_ms']:.2f} "
+               f"ms/iteration, {rt['mapping_frame_s']:.3f} s/frame" if rt else "")
+    print(f"[{label}] PSNR {metrics['psnr']:.4f} dB, MS-SSIM {metrics['ms_ssim']:.5f}, LPIPS "
+          f"(synthetic) {metrics['lpips_synthetic']:.5f}, depth L1 "
+          f"{100 * metrics['depth_l1']:.4f} cm, depth RMSE {100 * metrics['depth_rmse']:.4f} cm, "
+          f"ATE {100 * metrics['ate_rmse']:.4f} cm{runtime} ({card})", flush=True)
+    if not all(math.isfinite(v) for v in vals):
+        fail(f"{label}: a metric is not finite: {metrics}")
+
+
+def _run_dir(config) -> str:
+    return os.path.join(config["workdir"], config["run_name"])
+
+
+def _load_params(path: str, label: str) -> dict:
+    import numpy as np
+
+    if not os.path.exists(path):
+        fail(f"{label}: {path} was not written")
+    params = dict(np.load(path, allow_pickle=True))
+    missing = [k for k in PARAM_KEYS if k not in params]
+    if missing:
+        fail(f"{label}: {os.path.basename(path)} lacks {missing}")
+    return params
+
+
+def eval_split(config, params: dict, device) -> None:
+    """One frame's eval (the last) split into the synthetic frame's
+    generation (host ray cast, wall ms), its render (K1 and the binning
+    around it), MS-SSIM and LPIPS: CUDA-event ms per call (events span the
+    host's gaps too)."""
+    import numpy as np
+
+    from splatam_tpu_torch.core.camera import setup_camera
+    from splatam_tpu_torch.core.losses import ms_ssim
+    from splatam_tpu_torch.data import dataset_from_config, frame_to_tensors
+    from splatam_tpu_torch.eval import evaluate
+    from splatam_tpu_torch.eval.lpips import lpips_fn
+
+    ds = dataset_from_config(config["data"])
+    i = FRAMES_SLAM - 1
+    t0 = time.time()
+    for _ in range(2):
+        color_np, depth_np, intr, _ = ds[i]
+    frame_ms = (time.time() - t0) * 1e3 / 2
+    cam = setup_camera(color_np.shape[1], color_np.shape[0], intr[:3, :3], None)
+    gm = evaluate._map_from_params(params, device)
+    q = np.asarray(params["cam_unnorm_rots"])[0, :, i]
+    t = np.asarray(params["cam_trans"])[0, :, i]
+    color, depth = frame_to_tensors(color_np, depth_np, device)
+    lpips = lpips_fn(device=device)
+    out = evaluate.render_at_pose(gm, q, t, cam)
+    im, gt = out.im * (depth > 0)[None], color * (depth > 0)[None]
+    ms = {"dataset frame (host)": frame_ms,
+          "render": event_ms(lambda: evaluate.render_at_pose(gm, q, t, cam), 5, 1),
+          "ms_ssim": event_ms(lambda: ms_ssim(im, gt), 5, 1),
+          "lpips": event_ms(lambda: lpips(im.clamp(0, 1), gt.clamp(0, 1)), 5, 1)}
+    print(f"path 4 eval of one frame, {cam.width}x{cam.height}, {len(params['means3D'])} "
+          f"Gaussians: " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()), flush=True)
+
+
+def drive_slam(work: str, device, card: str) -> dict:
+    """Path 4 (a)-(d), see the module docstring. Returns the launch counts
+    of the run, its eval and its resume."""
+    import numpy as np
+    import torch
+
+    from splatam_tpu_torch.data import dataset_from_config
+    from splatam_tpu_torch.eval.evaluate import eval_sequence
+    from splatam_tpu_torch.io.ply import load_ply
+    from splatam_tpu_torch.scripts import export_ply
+    from splatam_tpu_torch.scripts.harness import launch_counts, reset_launch_counts
+    from splatam_tpu_torch.slam.config import seed_everything
+    from splatam_tpu_torch.slam.pipeline import rgbd_slam
+
+    config = bench_config(work, data={"num_frames": FRAMES_SLAM}, save_checkpoints=True,
+                          checkpoint_interval=CKPT_EVERY, run_name="path4")
+    run = _run_dir(config)
+    launches = {}
+
+    # (a) the run
+    seed_everything(0)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.time()
+    metrics = rgbd_slam(copy.deepcopy(config), device)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches["path 4"] = launch_counts()
+    check_launches("path 4", launches["path 4"])
+    params = _load_params(os.path.join(run, "params.npz"), "path 4")
+    for t in range(0, FRAMES_SLAM, CKPT_EVERY):
+        _load_params(os.path.join(run, f"params{t}.npz"), "path 4")
+    kf_path = os.path.join(run, f"keyframe_time_indices{RESUME_AT}.npy")
+    if not os.path.exists(kf_path):
+        fail(f"path 4: {kf_path} was not written")
+    kfs = params["keyframe_time_indices"].tolist()
+    print(f"path 4: {FRAMES_SLAM} frames in {wall:.3f} s with its eval, {len(params['means3D'])} "
+          f"Gaussians, keyframes {kfs}", flush=True)
+    if kfs != SLAM_KEYFRAMES:
+        fail(f"path 4: keyframes {kfs}, expected {SLAM_KEYFRAMES}")
+    if not (np.isfinite(params["cam_unnorm_rots"]).all() and np.isfinite(params["cam_trans"]).all()):
+        fail("path 4: non-finite poses")
+    report_quality("path 4", metrics, card)
+
+    # (b) eval again on the saved params.npz
+    cfg_m = config["mapping"]
+    ds = dataset_from_config(config["data"])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.time()
+    again = eval_sequence(ds, params, FRAMES_SLAM, os.path.join(run, "eval_again"),
+                          cfg_m["sil_thres"], cfg_m["num_iters"], cfg_m["add_new_gaussians"],
+                          eval_every=config["eval_every"], device=device)
+    torch.cuda.synchronize()
+    print(f"path 4 eval: {time.time() - t0:.3f} s for {FRAMES_SLAM} frames", flush=True)
+    launches["path 4 eval"] = launch_counts()
+    check_launches("path 4 eval", launches["path 4 eval"])
+    same = again == {k: v for k, v in metrics.items() if k != "runtime"}
+    print(f"path 4 eval of params.npz equal to the run's bit for bit: {same}", flush=True)
+    if not same:
+        fail(f"path 4: eval of params.npz {again} differs from the run's {metrics}")
+    eval_split(config, params, device)
+
+    # (c) resume from checkpoint RESUME_AT, in a run directory of its own
+    resume = dict(copy.deepcopy(config), run_name="path4_resume", load_checkpoint=True,
+                  checkpoint_time_idx=RESUME_AT)
+    os.makedirs(_run_dir(resume))
+    for name in (f"params{RESUME_AT}.npz", f"keyframe_time_indices{RESUME_AT}.npy"):
+        shutil.copy(os.path.join(run, name), _run_dir(resume))
+    seed_everything(0)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.time()
+    resumed = rgbd_slam(resume, device)
+    torch.cuda.synchronize()
+    launches["path 4 resume"] = launch_counts()
+    check_launches("path 4", launches["path 4 resume"], "path 4 resume")
+    rparams = _load_params(os.path.join(_run_dir(resume), "params.npz"), "path 4 resume")
+    if not (np.isfinite(rparams["cam_unnorm_rots"]).all()
+            and np.isfinite(rparams["cam_trans"]).all()):
+        fail("path 4 resume: non-finite poses")
+    print(f"path 4 resume from frame {RESUME_AT}: {time.time() - t0:.3f} s, keyframes "
+          f"{rparams['keyframe_time_indices'].tolist()}, {len(rparams['means3D'])} Gaussians",
+          flush=True)
+    report_quality("path 4 resumed", resumed, card)
+
+    # (d) export_ply, load_ply
+    exp = os.path.join(work, "path4_experiment.py")
+    with open(exp, "w") as f:
+        f.write(f"config = {config!r}\n")
+    back = load_ply(export_ply.main([exp]))
+    n = len(params["means3D"])
+    ok = (all(np.array_equal(back[k], params[k].reshape(n, -1)) for k in
+              ("means3D", "unnorm_rotations", "logit_opacities"))
+          and np.array_equal(back["log_scales"], np.tile(params["log_scales"], (1, 3)))
+          and np.abs(back["rgb_colors"] - params["rgb_colors"]).max() <= 1e-6)
+    print(f"path 4 export_ply -> load_ply: {n} Gaussians, arrays given back={ok}", flush=True)
+    if not ok:
+        fail("path 4: load_ply does not give back params.npz's arrays")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -841,8 +1052,10 @@ def main() -> None:
     check_cases(probe_cases(x.ps, x.pose, x.w, x.h), label, equal_to={
         "fwd2": lambda: fused_iso.fused_forward(x.ps.world8, x.pose, x.ps.tile_start, x.w, x.h)})
 
+    work = tempfile.mkdtemp(prefix="chip_smoke_")  # the SLAM runs' directories
+    atexit.register(shutil.rmtree, work, True)
     launches = {}
-    rt, launches["path 1"] = drive_path("path 1", bench_config(), FRAMES, device)
+    rt, launches["path 1"] = drive_path("path 1", bench_config(work), FRAMES, device)
 
     # Kernel vs plain, times and bounds at the main path's shapes: path 1's
     # final map, its last frame's pose, the full image.
@@ -872,14 +1085,15 @@ def main() -> None:
     del rt
     torch.cuda.empty_cache()
 
-    rt, launches["path 2"] = drive_path("path 2", bench_config(tpu={"rebin_every": 1}),
+    rt, launches["path 2"] = drive_path("path 2", bench_config(work, tpu={"rebin_every": 1}),
                                         FRAMES_GENERIC, device)
     profile_frame(rt, FRAMES_GENERIC, "path 2", device)
     del rt
     torch.cuda.empty_cache()
 
     rt, launches["path 3"] = drive_path(
-        "path 3", bench_config(gaussian_distribution="anisotropic"), FRAMES_GENERIC, device)
+        "path 3", bench_config(work, gaussian_distribution="anisotropic"), FRAMES_GENERIC,
+        device)
     check_aniso_pair_rows(rt, FRAMES_GENERIC - 1, device)
     del rt
     torch.cuda.empty_cache()
@@ -894,6 +1108,9 @@ def main() -> None:
 
     for mode in ([], ["--stages"]):
         profile_iter.main(["--n", str(PROFILE_N), "--h", str(HEIGHT), "--w", str(WIDTH), *mode])
+    torch.cuda.empty_cache()
+
+    launches.update(drive_slam(work, device, card))
 
     rows = []
     for name, (replaces, source) in KERNELS.items():

@@ -59,3 +59,45 @@ def calc_ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
     if size_average:
         return ssim_map.mean()
     return ssim_map.mean(dim=(1, 2))
+
+
+MS_SSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
+
+
+def ms_ssim(img1: torch.Tensor, img2: torch.Tensor, data_range: float = 1.0) -> torch.Tensor:
+    """Multi-scale SSIM over [C, H, W] (5 scales, the standard weights, 2x2
+    mean downsampling between scales). Counterpart of
+    splatam_tpu/core/losses.py ms_ssim (reference: pytorch_msssim,
+    utils/eval_helpers.py:19,482-483)."""
+    weights = torch.tensor(MS_SSIM_WEIGHTS, dtype=torch.float32, device=img1.device)
+    window = torch.as_tensor(_gaussian_window(11, 1.5), device=img1.device)
+    c1 = (0.01 * data_range) ** 2
+    c2 = (0.03 * data_range) ** 2
+
+    def ssim_and_cs(a, b):
+        mu1, mu2 = _blur_sep(a, window), _blur_sep(b, window)
+        mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+        s1 = _blur_sep(a * a, window) - mu1_sq
+        s2 = _blur_sep(b * b, window) - mu2_sq
+        s12 = _blur_sep(a * b, window) - mu1_mu2
+        cs = (2 * s12 + c2) / (s1 + s2 + c2)
+        ssim = ((2 * mu1_mu2 + c1) / (mu1_sq + mu2_sq + c1)) * cs
+        return ssim.mean(), cs.mean()
+
+    def downsample(x):
+        c, h, w = x.shape
+        h2, w2 = (h // 2) * 2, (w // 2) * 2
+        return x[:, :h2, :w2].reshape(c, h2 // 2, 2, w2 // 2, 2).mean(dim=(2, 4))
+
+    mcs = []
+    a, b = img1, img2
+    for i in range(5):
+        ssim_val, cs = ssim_and_cs(a, b)
+        mcs.append(cs)
+        if i < 4:
+            a, b = downsample(a), downsample(b)
+    # The standard combination, with negative terms clamped at 0 (as the
+    # reference package does).
+    mcs = torch.clamp(torch.stack(mcs[:-1]), min=0.0)
+    ssim_val = torch.clamp(ssim_val, min=0.0)
+    return torch.prod(mcs ** weights[:-1]) * ssim_val ** weights[-1]

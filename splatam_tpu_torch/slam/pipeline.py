@@ -1,10 +1,13 @@
 """Online RGB-D SLAM pipeline: per-frame track -> densify -> map.
 
-Counterpart of splatam_tpu/slam/pipeline.py for the online loop as
-bench.py drives it (reference: scripts/splatam.py:455-990). Host state
+Counterpart of splatam_tpu/slam/pipeline.py (reference:
+scripts/splatam.py:455-990): `rgbd_slam` is the full online entry point
+(progress reports, checkpoints and resume, the final evaluation and
+params.npz), `run_frame` the frame as bench.py drives it. Host state
 (trajectory, keyframe list) is numpy; the map and the keyframe store live
-on `device`. Keyframe draws use np.random exactly as the reference package
-does, so both packages draw the same schedule from the same seed.
+on `device`, the card unless the caller asks for the CPU. Keyframe draws
+use np.random exactly as the reference package does, so both packages draw
+the same schedule from the same seed.
 
 Not carried over, because they exist only because XLA compiles one program
 per shape: the background precompile threads, the capacity bucket ladder
@@ -14,13 +17,18 @@ active span of the map.
 """
 from __future__ import annotations
 
+import os
+import time
+
 import numpy as np
 import torch
 
 from splatam_tpu_torch.core import gaussians as G
 from splatam_tpu_torch.core.camera import setup_camera
 from splatam_tpu_torch.core.transforms import matrix_to_quaternion
-from splatam_tpu_torch.data import get_dataset
+from splatam_tpu_torch.data import dataset_from_config, frame_to_tensors
+from splatam_tpu_torch.eval.evaluate import eval_sequence, report_progress
+from splatam_tpu_torch.io.params_io import save_params, save_params_ckpt
 from splatam_tpu_torch.slam import steps
 from splatam_tpu_torch.slam.config import backfill_defaults
 from splatam_tpu_torch.slam.keyframes import keyframe_selection_overlap
@@ -75,11 +83,9 @@ def _w2c_from_qt(q: np.ndarray, t: np.ndarray) -> np.ndarray:
     return w2c
 
 
-def frame_to_tensors(color_np, depth_np, device):
-    """Dataset frame (HWC 0-255 color, HW1 depth) -> ([3,H,W], [H,W])."""
-    color = torch.as_tensor(color_np.transpose(2, 0, 1) / 255.0, dtype=torch.float32)
-    depth = torch.as_tensor(depth_np[..., 0], dtype=torch.float32)
-    return color.to(device), depth.to(device)
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _unported(config: dict) -> None:
@@ -100,14 +106,9 @@ def _unported(config: dict) -> None:
          or data["tracking_image_width"] != data["desired_image_width"],
          "separate tracking/densification resolutions are not ported yet "
          "(ROADMAP, module list item 1.6)"),
-        (int(config.get("map_every", 1)) != 1,
-         "map_every != 1 belongs to the full rgbd_slam loop, which is not ported yet "
-         "(ROADMAP, module list item 1.3)"),
-        (bool(config.get("save_checkpoints", False)),
-         "save_checkpoints belongs to the full rgbd_slam loop, which is not ported yet "
-         "(ROADMAP, module list item 1.3)"),
-        (bool(config.get("load_checkpoint", False)),
-         "load_checkpoint (resuming a run) is not ported yet (ROADMAP, module list item 1.5)"),
+        (bool(config["tracking"].get("visualize_tracking_loss", False)),
+         "tracking.visualize_tracking_loss (the per-frame GT/render panel) is not ported yet "
+         "(ROADMAP, module list item 1.10)"),
     ]
     for bad, msg in checks:
         if bad:
@@ -115,34 +116,37 @@ def _unported(config: dict) -> None:
 
 
 class SLAMRuntime:
-    """Mutable state of one SLAM run, on one device."""
+    """Mutable state of one SLAM run, on one device: the card unless the
+    caller asks for the CPU (`device="cpu"` runs the kernels' plain
+    versions). Asking for the card where there is none raises; nothing
+    falls back to the CPU."""
 
-    def __init__(self, config: dict, device):
+    def __init__(self, config: dict, device="cuda"):
         self.config = config = backfill_defaults(config)
         _unported(config)
         self.device = device = torch.device(device)
-        data = config["data"]
-        self.dataset = get_dataset(
-            config_dict={"dataset_name": data["dataset_name"],
-                         "num_frames": data.get("num_frames", 30),
-                         **{k: data[k] for k in ("motion_scale", "depth_noise_sigma",
-                                                 "synthetic_seed", "trajectory")
-                            if k in data}},
-            basedir=data.get("basedir", ""),
-            sequence=str(data.get("sequence", "")),
-            desired_height=data["desired_image_height"],
-            desired_width=data["desired_image_width"],
-        )
-        num_frames = data.get("num_frames", -1)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("SLAMRuntime: no CUDA device; pass device='cpu' to run the "
+                               "kernels' plain versions on the CPU")
+        self.output_dir = os.path.join(config["workdir"], config["run_name"])
+        self.eval_dir = os.path.join(self.output_dir, "eval")
+        os.makedirs(self.eval_dir, exist_ok=True)
+        self.dataset = dataset_from_config(config["data"])
+        num_frames = config["data"].get("num_frames", -1)
         self.num_frames = len(self.dataset) if num_frames == -1 else num_frames
         self.rebin_every = int(config["tpu"]["rebin_every"])
         self.isotropic = config["gaussian_distribution"] == "isotropic"
         self.pcfg_track = _phase_cfg(config["tracking"])
         self.pcfg_map = _phase_cfg(config["mapping"])
         self.prune_cfg = _prune_cfg(config["mapping"])
+        # Per-iteration (loss, w_depth, w_im) rows, kept only for the two
+        # consumers of them: wandb's per-iteration stream and
+        # report_iter_progress. Off, the phases add no launch or host sync.
+        self.record_hist = bool(config["use_wandb"] or config["report_iter_progress"])
 
-        color_np, depth_np, intrinsics_np, _ = self.dataset[0]
+        color_np, depth_np, intrinsics_np, pose_np = self.dataset[0]
         self.intrinsics = intrinsics_np[:3, :3]
+        self.first_frame_w2c = np.linalg.inv(pose_np)
         h, w = color_np.shape[0], color_np.shape[1]
         self.cam = setup_camera(w, h, self.intrinsics, None)
 
@@ -163,7 +167,10 @@ class SLAMRuntime:
         self.kf_depths = torch.zeros((kf_cap, h, w), dtype=torch.float32, device=device)
         self.kf_scratch_slot = kf_cap - 1
         self.keyframe_list = []  # dicts: id, slot, q, t
+        self.keyframe_time_indices = []
         self.gt_w2c_all = []
+        self.iters_run = 0  # the last tracking phase's iterations
+        self.tracking_hist = self.mapping_hist = None  # numpy [iters, 3] when recorded
 
     def compact(self) -> None:
         """Re-pack active Gaussians into a dense prefix, unless the holes
@@ -180,24 +187,101 @@ class SLAMRuntime:
         self.timestep = torch.cat([self.timestep, self.timestep.new_zeros(pad)])
         print(f"[splatam-torch] grew gaussian capacity to {new_capacity}")
 
+    def _grow_kf_store(self, extra: int = 8) -> None:
+        """Grow the device keyframe store. The initial capacity
+        (num_frames // keyframe_every + 3) is an estimate that the extra
+        keyframe at num_frames - 2 or a resume's replay can run past;
+        growing keeps every keyframe. The scratch (current-frame) slot
+        stays the last one, with its contents."""
+        old_cap = self.kf_colors.shape[0]
+        new_cap = old_cap + extra
+        kc = self.kf_colors.new_zeros((new_cap,) + tuple(self.kf_colors.shape[1:]))
+        kd = self.kf_depths.new_zeros((new_cap,) + tuple(self.kf_depths.shape[1:]))
+        kc[: old_cap - 1] = self.kf_colors[: old_cap - 1]
+        kd[: old_cap - 1] = self.kf_depths[: old_cap - 1]
+        kc[new_cap - 1] = self.kf_colors[self.kf_scratch_slot]
+        kd[new_cap - 1] = self.kf_depths[self.kf_scratch_slot]
+        self.kf_colors, self.kf_depths = kc, kd
+        self.kf_scratch_slot = new_cap - 1
+        print(f"[splatam-torch] grew keyframe store to {new_cap} slots")
+
     def _stage_keyframe(self, slot: int, color_np: np.ndarray, depth_np: np.ndarray) -> None:
         self.kf_colors[slot] = torch.as_tensor(np.clip(color_np, 0, 255).astype(np.uint8))
         self.kf_depths[slot] = torch.as_tensor(depth_np[..., 0], dtype=torch.float32)
+
+    def add_keyframe(self, time_idx: int, color_np: np.ndarray, depth_np: np.ndarray) -> None:
+        """Stage the frame into the next store slot (growing the store when
+        it reaches the scratch slot) and append it to the keyframe list."""
+        slot = len(self.keyframe_list)
+        while slot >= self.kf_scratch_slot:
+            self._grow_kf_store()
+        self._stage_keyframe(slot, color_np, depth_np)
+        self.keyframe_list.append({"id": time_idx, "slot": slot,
+                                   "q": self.cam_rots[time_idx].copy(),
+                                   "t": self.cam_trans[time_idx].copy()})
+        self.keyframe_time_indices.append(time_idx)
+
+    def init_pose(self, time_idx: int) -> None:
+        """The frame's starting pose (scripts/splatam.py:423-442): constant
+        velocity with tracking.forward_prop, else the previous pose."""
+        if time_idx > 1 and self.config["tracking"]["forward_prop"]:
+            p1 = self.cam_rots[time_idx - 1] / np.linalg.norm(self.cam_rots[time_idx - 1])
+            p2 = self.cam_rots[time_idx - 2] / np.linalg.norm(self.cam_rots[time_idx - 2])
+            nr = p1 + (p1 - p2)
+            self.cam_rots[time_idx] = nr / np.linalg.norm(nr)
+            self.cam_trans[time_idx] = self.cam_trans[time_idx - 1] + (
+                self.cam_trans[time_idx - 1] - self.cam_trans[time_idx - 2])
+        elif time_idx > 0:
+            self.cam_rots[time_idx] = self.cam_rots[time_idx - 1]
+            self.cam_trans[time_idx] = self.cam_trans[time_idx - 1]
+
+    def set_gt_pose(self, time_idx: int, gt_w2c: np.ndarray) -> None:
+        """tracking.use_gt_poses: the frame's pose is the ground truth's."""
+        rot = torch.as_tensor(gt_w2c[:3, :3], dtype=torch.float32)
+        self.cam_rots[time_idx] = matrix_to_quaternion(rot).numpy()
+        self.cam_trans[time_idx] = gt_w2c[:3, 3]
+
+    def load_checkpoint(self, checkpoint_time_idx: int) -> None:
+        """Resume from params{t}.npz (parity: scripts/splatam.py:604-638):
+        reload the map and trajectory, take per-Gaussian auxiliaries
+        (timestep) as zeros, replay the ground-truth poses, and rebuild
+        the keyframe list and store from the saved keyframe indices by
+        re-reading those frames."""
+        print(f"Loading Checkpoint for Frame {checkpoint_time_idx}")
+        ckpt = dict(np.load(os.path.join(self.output_dir, f"params{checkpoint_time_idx}.npz"),
+                            allow_pickle=True))
+        self.gm = G.from_params_dict(ckpt, self.device, capacity=self.gm.capacity)
+        self.timestep = torch.zeros((self.gm.capacity,), dtype=torch.float32,
+                                    device=self.device)
+        cam_rots = np.asarray(ckpt["cam_unnorm_rots"])[0].T.astype(np.float32)
+        cam_trans = np.asarray(ckpt["cam_trans"])[0].T.astype(np.float32)
+        n = min(len(cam_rots), len(self.cam_rots))
+        self.cam_rots[:n] = cam_rots[:n]
+        self.cam_trans[:n] = cam_trans[:n]
+        kf_indices = np.load(os.path.join(
+            self.output_dir, f"keyframe_time_indices{checkpoint_time_idx}.npy")).tolist()
+        for time_idx in range(checkpoint_time_idx):
+            color_np, depth_np, _, gt_pose = self.dataset[time_idx]
+            self.gt_w2c_all.append(np.linalg.inv(gt_pose))
+            if time_idx in kf_indices:
+                self.add_keyframe(time_idx, color_np, depth_np)
 
     def track_frame(self, time_idx: int, tr_color, tr_depth) -> None:
         cfg_t = self.config["tracking"]
         view = G.slice_prefix(self.gm, self.gm.span())
         q0 = torch.as_tensor(self.cam_rots[time_idx], device=self.device)
         t0 = torch.as_tensor(self.cam_trans[time_idx], device=self.device)
-        best_q, best_t, _, _ = steps.tracking_phase(
+        best_q, best_t, self.iters_run, _, hist = steps.tracking_phase(
             view, q0, t0, tr_color, tr_depth, self.cam, int(cfg_t["num_iters"]),
             bool(cfg_t["use_depth_loss_thres"]), float(cfg_t["depth_loss_thres"]),
             float(cfg_t["lrs"]["cam_unnorm_rots"]), float(cfg_t["lrs"]["cam_trans"]),
             self.pcfg_track, self.rebin_every,
             lr_decay_frac=float(cfg_t.get("lr_decay_frac", 1.0)),
+            record_hist=self.record_hist,
         )
         self.cam_rots[time_idx] = best_q.cpu().numpy()
         self.cam_trans[time_idx] = best_t.cpu().numpy()
+        self.tracking_hist = None if hist is None else hist.cpu().numpy()
 
     def densify_frame(self, time_idx: int, d_color, d_depth) -> None:
         q = torch.as_tensor(self.cam_rots[time_idx], device=self.device)
@@ -258,6 +342,7 @@ class SLAMRuntime:
     def map_frame(self, time_idx: int, selected: list) -> None:
         cfg_m = self.config["mapping"]
         num_iters = _mapping_budget(cfg_m, time_idx)
+        self.mapping_hist = None
         if num_iters == 0:
             return
         lrs_d = cfg_m["lrs"]
@@ -268,46 +353,51 @@ class SLAMRuntime:
         if self.rebin_every <= 1:  # every iteration bins anew
             struct_qs = struct_ts = iter_idx = None
         view = G.slice_prefix(self.gm, self.gm.span())
-        view = steps.mapping_phase(
+        view, hist = steps.mapping_phase(
             view, self.kf_colors, self.kf_depths, slots, qs, ts, self.scene_radius,
             self.cam, num_iters, self.pcfg_map, self.prune_cfg, lrs, struct_qs, struct_ts,
-            iter_idx)
+            iter_idx, record_hist=self.record_hist)
         self.gm = G.write_prefix(self.gm, view)
+        if hist is not None:
+            self.mapping_hist = hist.cpu().numpy()
+
+    def export_params(self) -> dict:
+        """The reference-schema params dict for saving and eval
+        (tests/test_slam_pipeline.py:58-64 lists its keys)."""
+        params = G.compact_to_numpy(self.gm)
+        active = self.gm.active.cpu().numpy()
+        params["timestep"] = self.timestep.cpu().numpy()[active]
+        params["cam_unnorm_rots"] = self.cam_rots.T[None].copy()  # [1,4,F]
+        params["cam_trans"] = self.cam_trans.T[None].copy()  # [1,3,F]
+        params["intrinsics"] = np.asarray(self.intrinsics)
+        params["w2c"] = np.asarray(self.first_frame_w2c)
+        params["org_width"] = self.config["data"]["desired_image_width"]
+        params["org_height"] = self.config["data"]["desired_image_height"]
+        if self.gt_w2c_all:
+            params["gt_w2c_all_frames"] = np.stack(self.gt_w2c_all)
+        params["keyframe_time_indices"] = np.array(self.keyframe_time_indices)
+        return params
 
 
 def run_frame(rt: SLAMRuntime, time_idx: int) -> None:
     """One frame of the online loop as bench.py drives it (bench.py:92-148):
-    pose init (constant velocity with tracking.forward_prop, else the
-    previous pose), compact, track (or, with tracking.use_gt_poses, take the
+    pose init, compact, track (or, with tracking.use_gt_poses, take the
     ground-truth pose), densify (unless mapping.add_new_gaussians is off),
     keyframe selection, stage the current frame, map, and append a keyframe
     every keyframe_every frames.
 
-    This is not rgbd_slam's full loop (splatam_tpu/slam/pipeline.py:1585-1853):
-    like bench.py it adds no keyframe at num_frames - 2 and has no
-    finite-pose gate on keyframes (:1770-1774), no map_every, no checkpoints,
-    no progress reports and no final evaluation."""
+    rgbd_slam's frame differs in three places: it adds a keyframe at
+    num_frames - 2, adds keyframes only for a finite ground-truth pose, and
+    densifies and maps only every map_every frames."""
     color_np, depth_np, _, gt_pose = rt.dataset[time_idx]
     gt_w2c = np.linalg.inv(gt_pose)
     rt.gt_w2c_all.append(gt_w2c)
     color, depth = frame_to_tensors(color_np, depth_np, rt.device)
-    cfg_t = rt.config["tracking"]
-    if time_idx > 1 and cfg_t["forward_prop"]:
-        p1 = rt.cam_rots[time_idx - 1] / np.linalg.norm(rt.cam_rots[time_idx - 1])
-        p2 = rt.cam_rots[time_idx - 2] / np.linalg.norm(rt.cam_rots[time_idx - 2])
-        nr = p1 + (p1 - p2)
-        rt.cam_rots[time_idx] = nr / np.linalg.norm(nr)
-        rt.cam_trans[time_idx] = rt.cam_trans[time_idx - 1] + (
-            rt.cam_trans[time_idx - 1] - rt.cam_trans[time_idx - 2])
-    elif time_idx > 0:
-        rt.cam_rots[time_idx] = rt.cam_rots[time_idx - 1]
-        rt.cam_trans[time_idx] = rt.cam_trans[time_idx - 1]
+    rt.init_pose(time_idx)
     rt.compact()
     if time_idx > 0:
-        if cfg_t.get("use_gt_poses", False):
-            rot = torch.as_tensor(gt_w2c[:3, :3], dtype=torch.float32)
-            rt.cam_rots[time_idx] = matrix_to_quaternion(rot).numpy()
-            rt.cam_trans[time_idx] = gt_w2c[:3, 3]
+        if rt.config["tracking"].get("use_gt_poses", False):
+            rt.set_gt_pose(time_idx, gt_w2c)
         else:
             rt.track_frame(time_idx, color, depth)
         if rt.config["mapping"]["add_new_gaussians"]:
@@ -316,8 +406,170 @@ def run_frame(rt: SLAMRuntime, time_idx: int) -> None:
     rt._stage_keyframe(rt.kf_scratch_slot, color_np, depth_np)
     rt.map_frame(time_idx, selected)
     if time_idx == 0 or (time_idx + 1) % rt.config["keyframe_every"] == 0:
-        slot = len(rt.keyframe_list)
-        rt._stage_keyframe(slot, color_np, depth_np)
-        rt.keyframe_list.append({"id": time_idx, "slot": slot,
-                                 "q": rt.cam_rots[time_idx].copy(),
-                                 "t": rt.cam_trans[time_idx].copy()})
+        rt.add_keyframe(time_idx, color_np, depth_np)
+
+
+def _replay_iter_progress(hist, phase: str, frame: int) -> None:
+    """report_iter_progress (utils/eval_helpers.py:246-254): the phase's
+    recorded per-iteration losses, replayed into a tqdm bar where tqdm
+    imports, else summed up in one line."""
+    if hist is None or len(hist) == 0:
+        return
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        print(f"{phase} Time Step: {frame}: {len(hist)} iterations, loss {hist[0, 0]:.6f} -> "
+              f"{hist[-1, 0]:.6f} (depth {hist[-1, 1]:.4f}, im {hist[-1, 2]:.4f})")
+        return
+    bar = tqdm(hist, desc=f"{phase} Time Step: {frame}", leave=False, total=len(hist))
+    for row in bar:
+        bar.set_postfix({"Loss": f"{float(row[0]):.6f}", "Depth": f"{float(row[1]):.4f}",
+                         "Im": f"{float(row[2]):.4f}"})
+    bar.close()
+
+
+def rgbd_slam(config: dict, device="cuda") -> dict:
+    """Run the full online SLAM (splatam_tpu/slam/pipeline.py:1585-1853);
+    returns the final evaluation's metric dict with the runtime averages.
+
+    Per frame: pose init, compact, tracking (or the ground-truth pose), a
+    progress report at frame 0 and every report_global_progress_every
+    frames, densify and map every map_every frames, a keyframe every
+    keyframe_every frames and at num_frames - 2 (only for a finite
+    ground-truth pose), and a checkpoint every checkpoint_interval frames
+    (save_checkpoints). Then eval_sequence on the final map and
+    params.npz. With load_checkpoint the run resumes at
+    checkpoint_time_idx. Progress prints one line per frame; errors are not
+    caught (a failed render or launch ends the run)."""
+    from splatam_tpu_torch.utils.logging import MetricsLogger, report_loss
+
+    print("Loaded Config:")
+    print(f"{config}")
+    rt = SLAMRuntime(config, device)
+    config = rt.config
+    cfg_t, cfg_m = config["tracking"], config["mapping"]
+    use_gt_poses = cfg_t["use_gt_poses"]
+    report_iter = bool(config["report_iter_progress"])
+    stats = dict.fromkeys(("tracking_iter_time_sum", "tracking_frame_time_sum",
+                           "mapping_iter_time_sum", "mapping_frame_time_sum"), 0.0)
+    stats.update(dict.fromkeys(("tracking_iter_time_count", "tracking_frame_time_count",
+                                "mapping_iter_time_count", "mapping_frame_time_count"), 0))
+    logger = MetricsLogger(bool(config["use_wandb"]), config, rt.output_dir)
+    wandb_time_step = wandb_mapping_step = 0
+
+    checkpoint_time_idx = 0
+    if config["load_checkpoint"]:
+        checkpoint_time_idx = int(config["checkpoint_time_idx"])
+        rt.load_checkpoint(checkpoint_time_idx)
+
+    for time_idx in range(checkpoint_time_idx, rt.num_frames):
+        frame_start = time.time()
+        color_np, depth_np, _, gt_pose = rt.dataset[time_idx]
+        gt_w2c = np.linalg.inv(gt_pose)
+        rt.gt_w2c_all.append(gt_w2c)
+        color, depth = frame_to_tensors(color_np, depth_np, rt.device)
+        rt.compact()
+        rt.init_pose(time_idx)
+
+        tracking_start = time.time()
+        if time_idx > 0 and not use_gt_poses:
+            rt.track_frame(time_idx, color, depth)
+            stats["tracking_iter_time_count"] += rt.iters_run
+            stats["tracking_frame_time_count"] += 1
+            if logger.enabled and rt.tracking_hist is not None:
+                for row in rt.tracking_hist:
+                    wandb_time_step = report_loss(
+                        logger, {"loss": row[0], "depth": row[1], "im": row[2]},
+                        wandb_time_step, tracking=True)
+            if report_iter:
+                _replay_iter_progress(rt.tracking_hist, "Tracking", time_idx)
+        elif time_idx > 0:
+            rt.set_gt_pose(time_idx, gt_w2c)
+            stats["tracking_frame_time_count"] += 1
+        tracking_time = time.time() - tracking_start
+        stats["tracking_frame_time_sum"] += tracking_time
+        if time_idx > 0 and not use_gt_poses:
+            stats["tracking_iter_time_sum"] += tracking_time
+
+        if time_idx == 0 or (time_idx + 1) % config["report_global_progress_every"] == 0:
+            m = report_progress(
+                G.slice_prefix(rt.gm, rt.gm.span()), rt.cam_rots[time_idx],
+                rt.cam_trans[time_idx], color, depth, rt.cam, cfg_t["sil_thres"],
+                tracking=True, gt_w2c_list=rt.gt_w2c_all,
+                est_w2c_list=[_w2c_from_qt(rt.cam_rots[i], rt.cam_trans[i])
+                              for i in range(time_idx + 1)])
+            print(f"[progress] frame {time_idx}: psnr={m['psnr']:.2f} "
+                  f"depth_l1={m['depth_l1']:.4f} ate_cm={m['ate_rmse'] * 100:.2f}")
+            logger.log({"Tracking/PSNR": m["psnr"], "Tracking/Depth RMSE": m["depth_rmse"],
+                        "Tracking/Depth L1": m["depth_l1"],
+                        "Tracking/ATE RMSE (cm)": m["ate_rmse"] * 100,
+                        "Tracking/step": time_idx})
+
+        if time_idx == 0 or (time_idx + 1) % config["map_every"] == 0:
+            if cfg_m["add_new_gaussians"] and time_idx > 0:
+                rt.densify_frame(time_idx, color, depth)
+            selected = rt.select_keyframes(time_idx, depth_np)
+            rt._stage_keyframe(rt.kf_scratch_slot, color_np, depth_np)
+            mapping_start = time.time()
+            rt.map_frame(time_idx, selected)
+            _sync(rt.device)
+            mapping_time = time.time() - mapping_start
+            stats["mapping_frame_time_sum"] += mapping_time
+            stats["mapping_frame_time_count"] += 1
+            stats["mapping_iter_time_sum"] += mapping_time
+            stats["mapping_iter_time_count"] += _mapping_budget(cfg_m, time_idx)
+            if report_iter:
+                _replay_iter_progress(rt.mapping_hist, "Mapping", time_idx)
+            if logger.enabled:
+                for row in (rt.mapping_hist if rt.mapping_hist is not None else []):
+                    wandb_mapping_step = report_loss(
+                        logger, {"loss": row[0], "depth": row[1], "im": row[2]},
+                        wandb_mapping_step, mapping=True)
+                logger.log({"Mapping/Number of Gaussians": rt.gm.num_active(),
+                            "Mapping/step": time_idx})
+
+        # Keyframing (scripts/splatam.py:911-925).
+        if ((time_idx == 0 or (time_idx + 1) % config["keyframe_every"] == 0
+             or time_idx == rt.num_frames - 2) and np.isfinite(gt_w2c).all()):
+            rt.add_keyframe(time_idx, color_np, depth_np)
+
+        if config["save_checkpoints"] and time_idx % config["checkpoint_interval"] == 0:
+            save_params_ckpt(rt.export_params(), rt.output_dir, time_idx)
+            np.save(os.path.join(rt.output_dir, f"keyframe_time_indices{time_idx}.npy"),
+                    np.array(rt.keyframe_time_indices))
+        print(f"[splatam-torch] frame {time_idx + 1}/{rt.num_frames}: "
+              f"{time.time() - frame_start:.3f} s, {rt.gm.num_active()} Gaussians", flush=True)
+
+    # Runtime averages (scripts/splatam.py:939-953).
+    s = stats
+    tic, tfc = max(s["tracking_iter_time_count"], 1), max(s["tracking_frame_time_count"], 1)
+    mic, mfc = max(s["mapping_iter_time_count"], 1), max(s["mapping_frame_time_count"], 1)
+    runtime = {
+        "tracking_iter_ms": s["tracking_iter_time_sum"] / tic * 1000,
+        "tracking_frame_s": s["tracking_frame_time_sum"] / tfc,
+        "mapping_iter_ms": s["mapping_iter_time_sum"] / mic * 1000,
+        "mapping_frame_s": s["mapping_frame_time_sum"] / mfc,
+    }
+    print(f"\nAverage Tracking/Iteration Time: {runtime['tracking_iter_ms']} ms")
+    print(f"Average Tracking/Frame Time: {runtime['tracking_frame_s']} s")
+    print(f"Average Mapping/Iteration Time: {runtime['mapping_iter_ms']} ms")
+    print(f"Average Mapping/Frame Time: {runtime['mapping_frame_s']} s")
+
+    final_params = rt.export_params()
+    metrics = eval_sequence(
+        rt.dataset, final_params, rt.num_frames, rt.eval_dir,
+        sil_thres=cfg_m["sil_thres"], mapping_iters=cfg_m["num_iters"],
+        add_new_gaussians=cfg_m["add_new_gaussians"], eval_every=config["eval_every"],
+        device=rt.device)
+    save_params(final_params, rt.output_dir)
+    metrics["runtime"] = runtime
+    logger.log({
+        "Final Stats/Average Tracking Iteration Time (ms)": runtime["tracking_iter_ms"],
+        "Final Stats/Average Tracking Frame Time (s)": runtime["tracking_frame_s"],
+        "Final Stats/Average Mapping Iteration Time (ms)": runtime["mapping_iter_ms"],
+        "Final Stats/Average Mapping Frame Time (s)": runtime["mapping_frame_s"],
+        "Final Stats/step": 1,
+    })
+    logger.log({f"Final/{k}": v for k, v in metrics.items() if isinstance(v, float)})
+    logger.finish()
+    return metrics

@@ -164,7 +164,7 @@ def loss_pair_structure(gm: GaussianMap, q, t, cam: Camera,
 def tracking_phase(gm: GaussianMap, q0, t0, color, depth_gt, cam: Camera, num_iters: int,
                    use_depth_loss_thres: bool, depth_loss_thres: float, lr_q: float,
                    lr_t: float, pcfg: PhaseConfig, rebin_every: int,
-                   lr_decay_frac: float = 1.0):
+                   lr_decay_frac: float = 1.0, record_hist: bool = False):
     """Tracking optimization for one frame: fresh Adam on (q, t); the
     best-loss candidate pairs the post-step pose with the pre-step loss (a
     reference quirk kept); optional one-time doubling of the iteration count
@@ -173,7 +173,10 @@ def tracking_phase(gm: GaussianMap, q0, t0, color, depth_gt, cam: Camera, num_it
     iterations and the render runs in pair space; with 1 every iteration
     bins anew through the generic render (reference semantics).
 
-    Returns (best_q, best_t, iterations run, min loss)."""
+    Returns (best_q, best_t, iterations run, min loss, hist): with
+    record_hist, hist is a device tensor [iterations run, 3] of (loss,
+    weighted depth loss, weighted im loss) per iteration, written into a
+    preallocated buffer (no host sync); else None."""
     use_rebin = rebin_every > 1
     gm = GaussianMap(*(a.detach() for a in gm))
     qt = (q0.detach().clone(), t0.detach().clone())
@@ -181,6 +184,7 @@ def tracking_phase(gm: GaussianMap, q0, t0, color, depth_gt, cam: Camera, num_it
     ps = loss_pair_structure(gm, q0, t0, cam, with_world16=True) if use_rebin else None
     best_q, best_t = q0.detach().clone(), t0.detach().clone()
     min_loss = torch.tensor(1e20, dtype=torch.float32, device=q0.device)
+    hist = torch.zeros((2 * num_iters, 3), device=q0.device) if record_hist else None
     limit, it = num_iters, 0
     while it < limit:
         if use_rebin and it > 0 and it % rebin_every == 0:
@@ -195,6 +199,8 @@ def tracking_phase(gm: GaussianMap, q0, t0, color, depth_gt, cam: Camera, num_it
         qt, st = optim.adam_step(st, (q.detach(), t.detach()), grads,
                                  (lr_q * decay, lr_t * decay), eps=1e-8)
         loss = loss.detach()
+        if hist is not None:
+            hist[it] = torch.stack([loss, aux.weighted_depth_loss, aux.weighted_im_loss])
         better = loss < min_loss
         best_q = torch.where(better, qt[0], best_q)
         best_t = torch.where(better, qt[1], best_t)
@@ -204,7 +210,7 @@ def tracking_phase(gm: GaussianMap, q0, t0, color, depth_gt, cam: Camera, num_it
             if not bool(aux.weighted_depth_loss < depth_loss_thres):
                 limit = 2 * num_iters
         it += 1
-    return best_q, best_t, it, min_loss
+    return best_q, best_t, it, min_loss, None if hist is None else hist[:it]
 
 
 # ---------------------------------------------------------------------------
@@ -245,7 +251,7 @@ MAP_PARAMS = ("means3d", "rgb_colors", "unnorm_rotations", "logit_opacities", "l
 def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs, iter_ts,
                   scene_radius: float, cam: Camera, num_iters: int, pcfg: PhaseConfig,
                   prune_cfg: PruneConfig, lrs: tuple, struct_qs=None, struct_ts=None,
-                  iter_struct_idx=None) -> GaussianMap:
+                  iter_struct_idx=None, record_hist: bool = False):
     """Mapping iterations for one frame over keyframes drawn by the host.
 
     iter_slots: per-iteration keyframe-store slot. With a distinct-keyframe
@@ -255,7 +261,11 @@ def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs,
     iterations; without one, every iteration bins anew. lrs follows the
     reference's order (MAP_PARAMS); an isotropic map's rotations never
     enter a render, so they take no step and stay as they are. Pruning
-    happens before each optimizer step (utils/slam_external.py:167-188)."""
+    happens before each optimizer step (utils/slam_external.py:167-188).
+
+    Returns (map, hist): with record_hist, hist is a device tensor
+    [num_iters, 3] of (loss, weighted depth loss, weighted im loss) per
+    iteration (as tracking_phase's); else None."""
     gm = GaussianMap(*(a.detach() for a in gm))
     structs = None
     if struct_qs is not None:
@@ -265,6 +275,7 @@ def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs,
     params = {k: getattr(gm, k) for k in keys}
     st = optim.adam_init(tuple(params.values()))
     active = gm.active
+    hist = torch.zeros((num_iters, 3), device=active.device) if record_hist else None
     for i in range(num_iters):
         slot = int(iter_slots[i])
         color = kf_colors_u8[slot].to(torch.float32).permute(2, 0, 1) / 255.0
@@ -272,9 +283,12 @@ def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs,
         p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         gm_i = gm._replace(**p, active=active)
         ps = None if structs is None else structs[int(iter_struct_idx[i])]
-        loss, _ = get_loss(gm_i, iter_qs[i], iter_ts[i], color, depth_gt, cam, pcfg,
-                           False, True, ps)
+        loss, aux = get_loss(gm_i, iter_qs[i], iter_ts[i], color, depth_gt, cam, pcfg,
+                             False, True, ps)
         grads = torch.autograd.grad(loss, tuple(p.values()))
+        if hist is not None:
+            hist[i] = torch.stack([loss.detach(), aux.weighted_depth_loss,
+                                   aux.weighted_im_loss])
         if prune_cfg.enabled:
             active = _prune_mask(params["logit_opacities"], params["log_scales"], active, i,
                                  scene_radius, prune_cfg)
@@ -289,7 +303,7 @@ def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs,
                                      step=st.step)
         new, st = optim.adam_step(st, tuple(params.values()), grads, plrs, eps=1e-15)
         params = dict(zip(keys, new))
-    return gm._replace(**params, active=active)
+    return gm._replace(**params, active=active), hist
 
 
 # ---------------------------------------------------------------------------

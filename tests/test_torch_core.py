@@ -155,14 +155,20 @@ def test_adam_matches_jax():
 
 def test_port_never_imports_jax():
     """Importing every module of the port leaves jax (and the loaders'
-    cv2 / imageio / yaml, which the GPU machine lacks) out of sys.modules."""
+    cv2 / imageio / yaml, and the plots', progress bars' and logger's
+    matplotlib / tqdm / wandb, which the GPU machine lacks) out of
+    sys.modules (the last three where importing torch did not already
+    bring them in)."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "import torch\n"
+        "before = set(sys.modules)\n"
         "import splatam_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'splatam_tpu.')))\n"
         "bad += [k for k in ('cv2', 'imageio', 'yaml') if k in sys.modules]\n"
+        "bad += [k for k in ('matplotlib', 'tqdm', 'wandb') if k in sys.modules and k not in before]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

@@ -502,3 +502,75 @@ def test_fused_forward_on_adversarial_world_rows(cuda, family):
     assert torch.equal(probes.fwd2(w8, pose, ts, w, h), got)
     _assert_same_image(probes.math_only(w8, pose, ts, w, h),
                        probes.math_only_plain(w8, pose, ts, w, h))
+
+
+def _micro_config(workdir, frames):
+    """test_torch_slam.py's micro config (64x48, 6 tracking / 8 mapping
+    iterations, rebin_every=8: the fused path), without importing jax."""
+    import os
+
+    from splatam_tpu_torch.slam.config import load_experiment_config
+
+    config = load_experiment_config(os.path.join(os.path.dirname(__file__), "..", "configs",
+                                                 "synthetic", "splatam.py"))
+    config["workdir"] = str(workdir)
+    config["data"].update(desired_image_height=48, desired_image_width=64, num_frames=frames)
+    config["tracking"]["num_iters"] = 6
+    config["mapping"]["num_iters"] = 8
+    config["mapping_window_size"] = 5
+    config["keyframe_every"] = 2
+    config["tpu"] = dict(capacity=1 << 13, rebin_every=8)
+    return config
+
+
+@pytest.fixture(scope="module")
+def slam_runs(tmp_path_factory):
+    """rgbd_slam on the micro config (3 frames), on the card and on the CPU,
+    each seeded at 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from splatam_tpu_torch.slam.config import seed_everything
+    from splatam_tpu_torch.slam.pipeline import rgbd_slam
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        config = _micro_config(tmp_path_factory.mktemp(dev), 3)
+        seed_everything(0)
+        out[dev] = (config, rgbd_slam(config, dev))
+    return out
+
+
+def _params(config):
+    import os
+
+    return dict(np.load(os.path.join(config["workdir"], config["run_name"], "params.npz")))
+
+
+def test_rgbd_slam_on_the_card_matches_cpu(slam_runs):
+    """Poses within 1e-4 of the CPU run (the plain versions), equal
+    keyframes (0, 1 and the num_frames - 2 one, 1), finite metrics."""
+    (gcfg, gm), (ccfg, cm) = slam_runs["cuda"], slam_runs["cpu"]
+    mine, ref = _params(gcfg), _params(ccfg)
+    np.testing.assert_allclose(mine["cam_unnorm_rots"], ref["cam_unnorm_rots"], atol=1e-4)
+    np.testing.assert_allclose(mine["cam_trans"], ref["cam_trans"], atol=1e-4)
+    assert mine["keyframe_time_indices"].tolist() == ref["keyframe_time_indices"].tolist()
+    assert all(np.isfinite(gm[k]) for k in ("psnr", "ms_ssim", "depth_l1", "ate_rmse",
+                                            "lpips_synthetic"))
+
+
+def test_eval_sequence_on_the_card_launches_k1(slam_runs, tmp_path):
+    """eval_sequence on the card renders every frame through K1 and, on the
+    run's own params.npz, gives the run's metrics bit for bit."""
+    from splatam_tpu_torch.data import dataset_from_config
+    from splatam_tpu_torch.eval.evaluate import eval_sequence
+    from splatam_tpu_torch.scripts.harness import launch_counts, reset_launch_counts
+
+    config, metrics = slam_runs["cuda"]
+    cfg_m = config["mapping"]
+    dataset = dataset_from_config(config["data"])
+    reset_launch_counts()
+    again = eval_sequence(dataset, _params(config), 3, str(tmp_path), cfg_m["sil_thres"],
+                          cfg_m["num_iters"], cfg_m["add_new_gaussians"],
+                          eval_every=config["eval_every"], device="cuda", save_plots=False)
+    assert launch_counts()["composite_forward"] >= 3
+    assert again == {k: v for k, v in metrics.items() if k != "runtime"}

@@ -179,9 +179,7 @@ def test_add_new_gaussians_off_skips_densification(tmp_path):
     ({"tracking": {"coarse_to_fine": {"enabled": True}}}, "module list item 1.6"),
     ({"tpu": {"spatial_shards": 2}}, "module list item 1.11"),
     ({"mapping": {"use_gaussian_splatting_densification": True}}, "module list item 1.8"),
-    ({"map_every": 2}, "module list item 1.3"),
-    ({"save_checkpoints": True}, "module list item 1.3"),
-    ({"load_checkpoint": True}, "module list item 1.5"),
+    ({"tracking": {"visualize_tracking_loss": True}}, "module list item 1.10"),
 ])
 def test_unported_configurations_raise(tmp_path, override, item):
     with pytest.raises(NotImplementedError, match=item):

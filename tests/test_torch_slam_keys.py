@@ -6,7 +6,8 @@ Same tolerance as test_slam_loop_matches_jax: poses within 1e-4, equal
 active counts per frame, equal keyframes. Each case also checks that its
 key changed the run (against the unchanged config's poses or counts, run
 once per module in the port only), so a key that is silently ignored by
-both packages does not pass for parity.
+both packages does not pass for parity; the one key both packages ignore
+on purpose (use_l1, as the reference does) must leave the run unchanged.
 """
 import numpy as np
 import pytest
@@ -42,7 +43,17 @@ CASES = {
     # everywhere, so frame 1's tracking has no pixels and the camera stays: this case holds
     # the pruning decisions (the active counts) and the reset, not the poses
     "prune_and_reset": dict(mapping={"pruning_dict": PRUNING}),
+    # the same schedule with pruning off: nothing leaves the map
+    "prune_off": dict(mapping={"prune_gaussians": False, "pruning_dict": PRUNING}),
+    # remove-big from iteration 4 on only, where about half of frame 0's Gaussians are bigger
+    # than 0.1 scene radius (scene radius = max depth / 7)
+    "remove_big_after": dict(scene_radius_depth_ratio=7, mapping={"pruning_dict": dict(
+        PRUNING, removal_opacity_threshold=0.005, reset_opacities=False, remove_big_after=4)}),
+    # both packages ignore use_l1, as the reference does (its get_loss always takes L1):
+    # the run equals the unchanged config's
+    "use_l1_off": dict(tracking={"use_l1": False}, mapping={"use_l1": False}),
 }
+IGNORED = {"use_l1_off"}
 
 
 @pytest.fixture(scope="module")
@@ -76,4 +87,11 @@ def test_config_key_matches_jax(tmp_path, base, case):
     means_moved = (rt.gm.span() != base_rt.gm.span()
                    or float((rt.gm.means3d[:rt.gm.span()]
                              - base_rt.gm.means3d[:rt.gm.span()]).abs().max()) > 0)
-    assert moved > 1e-6 or t_active != base_active or means_moved, "the key changed nothing"
+    if case == "prune_off":
+        # the schedule that removes Gaussians at frame 0 with pruning on (prune_and_reset)
+        # removes none: every valid pixel of frame 0 is still a Gaussian
+        assert t_active[0] == int((rt.dataset[0][1] > 0).sum())
+    elif case in IGNORED:
+        assert moved == 0 and t_active == base_active and not means_moved
+    else:
+        assert moved > 1e-6 or t_active != base_active or means_moved, "the key changed nothing"
