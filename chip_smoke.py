@@ -67,12 +67,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
      on the saved params.npz (K1 alone launched), whose metrics must equal
      (a)'s bit for bit, then one frame's eval split into render, MS-SSIM and
      LPIPS times; (c) a resume from checkpoint 3 to the end (finite poses);
-     (d) `export_ply` and `load_ply` give back the saved arrays.
+     (d) `export_ply` and `load_ply` give back the saved arrays;
+ 12. paths 5-7, the repo's real-dataset configs as written, each in a
+     temporary working directory holding a `configs` link to the repo's
+     and a `data/` tree of the synthetic scene rendered through the dataset
+     YAML's camera and written with `write_png` (data/export.py):
+     path 5, `configs/replica_v2/splatam.py` at 1200x680 on a Replica-V2
+     tree (6 train frames, 3 held out), run as `python -m
+     splatam_tpu_torch.scripts.splatam` in a subprocess (its main() with the
+     kernels' launch counts read at the end of that process), then
+     `...scripts.eval_novel_view configs/replica_v2/eval_novel_view.py` on
+     its params.npz (the NVS split, K1 alone); the loader's host time per
+     frame and the image reader it uses; path 6, `configs/tum/splatam.py`
+     at 640x480 on a TUM freiburg1_desk tree (5 frames, timestamp files,
+     depth and ground truth on stamps of their own) the same way, and
+     read_png's time on a Paeth-filtered 640x480 16-bit depth image; path
+     7a, `configs/replica/splatam_s.py` pointed at path 5's tree (tracking
+     at 1200x680, densification at 600x340), 6 frames of `run_frame`; 7b,
+     `configs/replica_v2/splatam.py` with coarse-to-fine tracking (levels
+     [[4, 10], [2, 10]], pooled), 4 frames: finite poses, K1, K2 and K3 at
+     11 columns launched and no other kernel, the K2 launches per frame the
+     config's iterations imply, finite quality metrics.
 A device-busy time (phases 6, 7, 10) counts only where torch.profiler
 recorded every launch of the port's kernels that the wrappers counted in
 its window; elsewhere it prints as unverified.
-Each path's launch counts (and those of phase 9's probe run, and of path
-4's eval and resume) are set to 0 just before it and read just after; the kernels the path must launch have
+Each path's launch counts (and those of phase 9's probe run, of path
+4's eval and resume, and of path 5's NVS eval) are set to 0 just before it
+(or start at 0 in a process of its own) and read just after; the kernels the path must launch have
 to be > 0 from frame 1 on, the fused kernels must stay at 0 on paths 2 and
 3 (the routing), and the probe kernels at 0 on paths 1-3.
 Prints the kernel table as one JSON line, the card line, and last
@@ -81,6 +102,7 @@ Prints the kernel table as one JSON line, the card line, and last
 from __future__ import annotations
 
 import atexit
+import contextlib
 import copy
 import json
 import math
@@ -98,6 +120,10 @@ FRAMES_GENERIC = 3  # paths 2 and 3
 FRAMES_SLAM, CKPT_EVERY = 7, 3  # path 4: checkpoints at frames 0, 3 and 6
 SLAM_KEYFRAMES = [0, 4, 5]  # keyframe_every=5, and num_frames - 2
 RESUME_AT = 3
+FRAMES_REPLICA, NVS_FRAMES = 6, 3  # paths 5 and 7a: the Replica-V2 tree's train and held-out frames
+FRAMES_TUM = 5  # path 6
+FRAMES_C2F = 4  # path 7b
+C2F = {"enabled": True, "levels": [[4, 10], [2, 10]], "downsample": "pool"}
 # params.npz's keys (tests/test_slam_pipeline.py:58-64)
 PARAM_KEYS = ("means3D", "rgb_colors", "unnorm_rotations", "logit_opacities", "log_scales",
               "cam_unnorm_rots", "cam_trans", "timestep", "intrinsics", "w2c",
@@ -167,18 +193,24 @@ KERNEL_INFO = {"composite_forward": ("composite_forward_info",),
                "segment_reduce": ("segment_reduce_info", 8),
                "segment_reduce11": ("segment_reduce_info", 11)}
 # Per path: the kernels it must launch, and those it must not.
+GENERIC = (("composite_forward", "composite_backward", "segment_reduce11"),
+           ("fused_forward", "fused_backward", "segment_reduce", *PROBES))
+EVAL = (("composite_forward",),
+        ("composite_backward", "fused_forward", "fused_backward", "segment_reduce",
+         "segment_reduce11", *PROBES))
 PATH_KERNELS = {
     "path 1": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
                ("composite_backward", "segment_reduce11", *PROBES)),
-    "path 2": (("composite_forward", "composite_backward", "segment_reduce11"),
-               ("fused_forward", "fused_backward", "segment_reduce", *PROBES)),
-    "path 3": (("composite_forward", "composite_backward", "segment_reduce11"),
-               ("fused_forward", "fused_backward", "segment_reduce", *PROBES)),
+    "path 2": GENERIC,
+    "path 3": GENERIC,
     "path 4": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
                ("composite_backward", "segment_reduce11", *PROBES)),
-    "path 4 eval": (("composite_forward",),
-                    ("composite_backward", "fused_forward", "fused_backward", "segment_reduce",
-                     "segment_reduce11", *PROBES)),
+    "path 4 eval": EVAL,
+    "path 5": GENERIC,
+    "path 5 nvs": EVAL,
+    "path 6": GENERIC,
+    "path 7a": GENERIC,
+    "path 7b": GENERIC,
     "probes": (("fused_forward", *PROBES),
                ("composite_forward", "composite_backward", "fused_backward", "segment_reduce",
                 "segment_reduce11")),
@@ -709,11 +741,14 @@ def bench_config(workdir: str, **overrides):
     return config
 
 
-def drive_path(name: str, config: dict, frames: int, device):
+def drive_path(name: str, config: dict, frames: int, device, k2_per_frame=None):
     """Run `frames` frames of the online loop; launch counts are zeroed
     just before and read after every frame. Fatal checks: the path's
     kernels launched from frame 1 on, the other kernels never, finite
-    poses, a growing map. Returns (runtime, launch counts)."""
+    poses, a map that densification grows after frame 0 (frame 0's mapping
+    may prune the first frame's cloud); with k2_per_frame = (frame 0, later frames), K2's
+    launches in each frame (one per tracking and one per mapping iteration
+    on the generic path). Returns (runtime, launch counts)."""
     import numpy as np
     import torch
 
@@ -731,6 +766,7 @@ def drive_path(name: str, config: dict, frames: int, device):
           flush=True)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    k2_before = 0
     for i in range(frames):
         torch.cuda.synchronize()
         t0 = time.time()
@@ -746,10 +782,16 @@ def drive_path(name: str, config: dict, frames: int, device):
             fail(f"{name}: a kernel of the path was never launched: {launches}")
         if any(launches[k] for k in never):
             fail(f"{name}: a kernel off the path was launched: {launches}")
+        if i == 0:
+            n_frame0 = rt.gm.num_active()
+        k2 = launches["composite_backward"] - k2_before
+        k2_before = launches["composite_backward"]
+        if k2_per_frame is not None and k2 != k2_per_frame[min(i, 1)]:
+            fail(f"{name} frame {i}: {k2} K2 launches, the config implies {k2_per_frame[min(i, 1)]}")
     launches = launch_counts()
     if not (np.isfinite(rt.cam_rots[:frames]).all() and np.isfinite(rt.cam_trans[:frames]).all()):
         fail(f"{name}: non-finite poses")
-    if not rt.gm.num_active() > n_start:
+    if not rt.gm.num_active() > n_frame0:
         fail(f"{name}: densification added no Gaussians")
     return rt, launches
 
@@ -1013,6 +1055,201 @@ def drive_slam(work: str, device, card: str) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def working_dir(path: str):
+    here = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(here)
+
+
+def write_trees(work: str) -> str:
+    """Paths 5-7's working directory: a `configs` link to the repo's, a
+    Replica-V2 room_0 tree (frames 0, 2, .., 10 of a 12-frame pan in imap/00,
+    frames 1, 5, 9 held out in imap/01) and a TUM freiburg1_desk tree (5
+    frames), each the synthetic scene rendered through its dataset YAML's
+    camera at the YAML's size and depth scale."""
+    from splatam_tpu_torch.data import load_dataset_config
+    from splatam_tpu_torch.data.export import synthetic_sequence, write_replica_v2, write_tum
+
+    real = os.path.join(work, "real")
+    os.makedirs(real)
+    os.symlink(os.path.join(ROOT, "configs"), os.path.join(real, "configs"))
+    t0 = time.time()
+    for yaml_path, frames, write in (
+            ("replica_v2.yaml", 2 * FRAMES_REPLICA, lambda ds, scale: write_replica_v2(
+                os.path.join(real, "data", "Replica_V2", "room_0"), ds,
+                train=range(0, 2 * FRAMES_REPLICA, 2),
+                test=range(1, 4 * NVS_FRAMES - 2, 4), depth_scale=scale)),
+            ("TUM/freiburg1_desk.yaml", FRAMES_TUM, lambda ds, scale: write_tum(
+                os.path.join(real, "data", "TUM_RGBD", "rgbd_dataset_freiburg1_desk"), ds,
+                depth_scale=scale))):
+        cam = load_dataset_config(os.path.join(ROOT, "configs", "data", yaml_path))["camera_params"]
+        write(synthetic_sequence(frames, cam["image_height"], cam["image_width"], cam["fx"],
+                                 cam["fy"], cam["cx"], cam["cy"]), cam["png_depth_scale"])
+    print(f"paths 5-7: trees written in {time.time() - t0:.1f} s (host ray cast, write_png)",
+          flush=True)
+    return real
+
+
+# Runs a CLI module's main() as `python -m <module> <args>` does, then
+# writes the process's launch counts and main()'s return value to a file.
+CLI = ("import importlib, json, sys\n"
+       "out, sys.argv = sys.argv[1], sys.argv[2:]\n"
+       "metrics = importlib.import_module(sys.argv[0]).main()\n"
+       "from splatam_tpu_torch.scripts.harness import launch_counts\n"
+       "with open(out, 'w') as f:\n"
+       "    json.dump({'launches': launch_counts(), 'metrics': metrics}, f, default=float)\n")
+
+
+def run_cli(real: str, module: str, config: str, label: str):
+    """`python -m <module> <config>` in `real` (SCENE_NUM=0, SEED=0), a
+    process of its own whose launch counts start at 0; fatal unless it
+    exits 0 and launched PATH_KERNELS[label]'s kernels and no other.
+    Returns (launch counts, main()'s metrics)."""
+    import torch
+
+    out = os.path.join(real, label.replace(" ", "_") + ".json")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([ROOT, os.environ.get("PYTHONPATH", "")]),
+               SCENE_NUM="0", SEED="0")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    sys.stdout.flush()
+    res = subprocess.run([sys.executable, "-c", CLI, out, module, config], cwd=real, env=env)
+    if res.returncode != 0:
+        fail(f"{label}: python -m {module} {config} exited {res.returncode}")
+    with open(out) as f:
+        got = json.load(f)
+    print(f"{label}: python -m {module} {config}: {time.time() - t0:.1f} s with its start",
+          flush=True)
+    check_launches(label, got["launches"])
+    return got["launches"], got["metrics"]
+
+
+def loader_time(real: str, config_path: str, label: str) -> None:
+    """The host time of dataset[i] (read, decode, resize) over the tree,
+    and the image reader the loader uses."""
+    from splatam_tpu_torch.data import dataset_from_config
+    from splatam_tpu_torch.slam.config import load_experiment_config
+
+    with working_dir(real):
+        ds = dataset_from_config(load_experiment_config(config_path)["data"])
+        t0 = time.time()
+        for i in range(len(ds)):
+            color, *_ = ds[i]
+        ms = (time.time() - t0) * 1e3 / len(ds)
+    print(f"{label} loader: {ms:.1f} ms per frame (host; read, decode, resize to "
+          f"{color.shape[1]}x{color.shape[0]}) over {len(ds)} frames, images read by "
+          f"{ds.imread.name}", flush=True)
+
+
+def time_read_png(real: str, work: str) -> None:
+    """read_png on TUM frame 0's 640x480 16-bit depth image, as written
+    (filter 0) and re-encoded with every row Paeth-filtered (its slowest
+    case: a Python loop over each row's bytes); host ms, best of 3."""
+    import glob
+
+    import numpy as np
+
+    from splatam_tpu_torch.data.png import read_png, write_png
+
+    src = sorted(glob.glob(os.path.join(real, "data", "TUM_RGBD", "*", "depth", "*.png")))[0]
+    depth = read_png(src)
+    paeth = os.path.join(work, "paeth.png")
+    write_png(paeth, depth, filter_type=4)
+    ms = {}
+    for name, path in (("filter 0", src), ("Paeth", paeth)):
+        times = []
+        for _ in range(3):
+            t0 = time.time()
+            back = read_png(path)
+            times.append((time.time() - t0) * 1e3)
+        if not np.array_equal(back, depth):
+            fail(f"read_png: the {name} file reads back different")
+        ms[name] = min(times)
+    print(f"read_png, {depth.shape[1]}x{depth.shape[0]} {depth.dtype}: filter 0 "
+          f"{ms['filter 0']:.1f} ms, Paeth {ms['Paeth']:.1f} ms (host)", flush=True)
+
+
+def finite_poses(params_path: str, label: str) -> None:
+    import numpy as np
+
+    params = _load_params(params_path, label)
+    if not (np.isfinite(params["cam_unnorm_rots"]).all() and np.isfinite(params["cam_trans"]).all()):
+        fail(f"{label}: non-finite poses")
+
+
+def drive_real(work: str, device, card: str) -> dict:
+    """Paths 5-7 (see the module docstring). Returns their launch counts."""
+    from splatam_tpu_torch.slam.config import load_experiment_config
+
+    try:
+        import PIL
+        print(f"Pillow {PIL.__version__} imports", flush=True)
+    except ImportError:
+        print("Pillow is not installed: PNG trees are read by read_png", flush=True)
+    real = write_trees(work)
+    launches = {}
+
+    # Path 5: Replica-V2 through the CLI, then the NVS eval on its params.npz.
+    cfg = "configs/replica_v2/splatam.py"
+    launches["path 5"], metrics = run_cli(real, "splatam_tpu_torch.scripts.splatam", cfg, "path 5")
+    finite_poses(os.path.join(real, "experiments", "ReplicaV2", "room_0_0", "params.npz"), "path 5")
+    report_quality("path 5", metrics, card)
+    launches["path 5 nvs"], nvs = run_cli(real, "splatam_tpu_torch.scripts.eval_novel_view",
+                                          "configs/replica_v2/eval_novel_view.py", "path 5 nvs")
+    print(f"[path 5 nvs] PSNR {nvs['psnr']:.4f} dB, MS-SSIM {nvs['ms_ssim']:.5f}, depth L1 "
+          f"{100 * nvs['depth_l1']:.4f} cm over {nvs['num_valid_frames']} valid held-out "
+          f"frames ({card})", flush=True)
+    if not all(math.isfinite(nvs[k]) for k in ("psnr", "ms_ssim", "depth_l1")):
+        fail(f"path 5 nvs: a metric is not finite: {nvs}")
+    loader_time(real, cfg, "path 5")
+
+    # Path 6: TUM freiburg1_desk through the CLI.
+    cfg = "configs/tum/splatam.py"
+    launches["path 6"], metrics = run_cli(real, "splatam_tpu_torch.scripts.splatam", cfg, "path 6")
+    finite_poses(os.path.join(real, "experiments", "TUM", "freiburg1_desk_seed0", "params.npz"),
+                 "path 6")
+    report_quality("path 6", metrics, card)
+    loader_time(real, cfg, "path 6")
+    time_read_png(real, work)
+
+    # Path 7a: SplaTAM-S (densification at 600x340) on path 5's tree.
+    with working_dir(real):
+        config = load_experiment_config("configs/replica/splatam_s.py")
+        config["data"].update(basedir="./data/Replica_V2", sequence="room_0",
+                              gradslam_data_cfg="./configs/data/replica_v2.yaml")
+        track, mapping = config["tracking"]["num_iters"], config["mapping"]["num_iters"]
+        rt, launches["path 7a"] = drive_path("path 7a", config, FRAMES_REPLICA, device,
+                                             k2_per_frame=(mapping, track + mapping))
+        dense = (rt.densify_cam.width, rt.densify_cam.height)
+        data = config["data"]
+        print(f"path 7a: tracking {rt.tracking_cam.width}x{rt.tracking_cam.height}, "
+              f"densification {dense[0]}x{dense[1]}, {rt.iters_run} tracking iterations in "
+              f"the last frame", flush=True)
+        if (dense != (data["densification_image_width"], data["densification_image_height"])
+                or rt.iters_run != track):
+            fail(f"path 7a: densification at {dense}, {rt.iters_run} tracking iterations")
+        del rt
+
+        # Path 7b: Replica-V2 with coarse-to-fine tracking.
+        config = load_experiment_config("configs/replica_v2/splatam.py")
+        config["tracking"]["coarse_to_fine"] = copy.deepcopy(C2F)
+        config["data"]["num_frames"] = FRAMES_C2F
+        track, mapping = config["tracking"]["num_iters"], config["mapping"]["num_iters"]
+        rt, launches["path 7b"] = drive_path("path 7b", config, FRAMES_C2F, device,
+                                             k2_per_frame=(mapping, track + mapping))
+        print(f"path 7b: levels {C2F['levels']} at {rt.tracking_cam.width}x"
+              f"{rt.tracking_cam.height}, {rt.iters_run} tracking iterations in the last frame",
+              flush=True)
+        if rt.iters_run != track:
+            fail(f"path 7b: {rt.iters_run} tracking iterations, the config implies {track}")
+        del rt
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -1111,6 +1348,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     launches.update(drive_slam(work, device, card))
+    torch.cuda.empty_cache()
+    launches.update(drive_real(work, device, card))
 
     rows = []
     for name, (replaces, source) in KERNELS.items():

@@ -1,6 +1,6 @@
 """Evaluate a saved params.npz on the train split or a held-out NVS split
-(counterpart of scripts/eval_novel_view.py, for the synthetic sequence,
-the one dataset the port serves).
+(counterpart of scripts/eval_novel_view.py; the held-out split of
+Replica-V2 and ScanNet++ with data.use_train_split=False).
 
     python -m splatam_tpu_torch.scripts.eval_novel_view <config> [--device cpu]
 

@@ -3,7 +3,10 @@
 Counterpart of splatam_tpu/slam/pipeline.py (reference:
 scripts/splatam.py:455-990): `rgbd_slam` is the full online entry point
 (progress reports, checkpoints and resume, the final evaluation and
-params.npz), `run_frame` the frame as bench.py drives it. Host state
+params.npz), `run_frame` the frame as bench.py drives it. Tracking and
+densification may run at sizes of their own (data.tracking_image_* and
+data.densification_image_*, each read from a dataset at that size), and
+tracking may start coarse (tracking.coarse_to_fine). Host state
 (trajectory, keyframe list) is numpy; the map and the keyframe store live
 on `device`, the card unless the caller asks for the CPU. Keyframe draws
 use np.random exactly as the reference package does, so both packages draw
@@ -24,9 +27,9 @@ import numpy as np
 import torch
 
 from splatam_tpu_torch.core import gaussians as G
-from splatam_tpu_torch.core.camera import setup_camera
+from splatam_tpu_torch.core.camera import Camera, setup_camera
 from splatam_tpu_torch.core.transforms import matrix_to_quaternion
-from splatam_tpu_torch.data import dataset_from_config, frame_to_tensors
+from splatam_tpu_torch.data import frame_to_tensors, make_datasets
 from splatam_tpu_torch.eval.evaluate import eval_sequence, report_progress
 from splatam_tpu_torch.io.params_io import save_params, save_params_ckpt
 from splatam_tpu_torch.slam import steps
@@ -68,6 +71,45 @@ def _mapping_budget(cfg_m: dict, time_idx: int) -> int:
     return num_iters
 
 
+def _downscale_camera(cam: Camera, factor: int, pool: bool = False) -> Camera:
+    """Camera for the factor-`factor` downsample of the image (coarse-to-fine
+    tracking), through the renderer's half-pixel convention (u = fx X/Z +
+    cx - 0.5); splatam_tpu/slam/pipeline.py:105-140.
+
+    pool=False (stride): coarse pixel (i, j) is full pixel (i*f, j*f), so
+    cx_c = (cx - 0.5)/f + 0.5 and the size rounds up.
+    pool=True (_pool_target): coarse pixel (i, j) is the mean of the f x f
+    block starting at (i*f, j*f), centred at full pixel i*f + (f-1)/2, so
+    cx_c = (cx - 0.5 - (f-1)/2)/f + 0.5 and the size rounds down."""
+    if pool:
+        half = (factor - 1) / 2.0
+        return cam._replace(height=cam.height // factor, width=cam.width // factor,
+                            fx=cam.fx / factor, fy=cam.fy / factor,
+                            cx=(cam.cx - 0.5 - half) / factor + 0.5,
+                            cy=(cam.cy - 0.5 - half) / factor + 0.5)
+    return cam._replace(height=-(-cam.height // factor), width=-(-cam.width // factor),
+                        fx=cam.fx / factor, fy=cam.fy / factor,
+                        cx=(cam.cx - 0.5) / factor + 0.5, cy=(cam.cy - 0.5) / factor + 0.5)
+
+
+def _pool_target(color: torch.Tensor, depth: torch.Tensor, factor: int):
+    """Mask-aware factor x factor average pooling of a tracking target
+    (splatam_tpu/slam/pipeline.py:143-159): colour is the block mean; depth
+    the mean over the block's valid (> 0) pixels, 0 where it has none (a
+    hole stays masked out of the loss instead of becoming phantom
+    geometry). The image is cropped to the largest multiple of factor."""
+    h, w = depth.shape
+    hc, wc = h // factor, w // factor
+    c = color[:, : hc * factor, : wc * factor]
+    c = c.reshape(3, hc, factor, wc, factor).mean(dim=(2, 4))
+    d = depth[: hc * factor, : wc * factor].reshape(hc, factor, wc, factor)
+    valid = (d > 0).to(d.dtype)
+    cnt = valid.sum(dim=(1, 3))
+    dsum = (d * valid).sum(dim=(1, 3))
+    d = torch.where(cnt > 0, dsum / cnt.clamp_min(1.0), torch.zeros_like(dsum))
+    return c, d
+
+
 def _w2c_from_qt(q: np.ndarray, t: np.ndarray) -> np.ndarray:
     w2c = np.eye(4, dtype=np.float32)
     w, x, y, z = (q / np.linalg.norm(q)).astype(np.float64)
@@ -90,22 +132,11 @@ def _sync(device: torch.device) -> None:
 
 def _unported(config: dict) -> None:
     """Raise for every configuration this slice does not run."""
-    tpu, data = config["tpu"], config["data"]
     checks = [
-        ((config["tracking"].get("coarse_to_fine") or {}).get("enabled", False),
-         "coarse-to-fine tracking is not ported yet (ROADMAP, module list item 1.6)"),
-        (int(tpu.get("spatial_shards", 0)) > 1,
+        (int(config["tpu"].get("spatial_shards", 0)) > 1,
          "row-sharded rendering is not ported yet (ROADMAP, module list item 1.11)"),
         (config["mapping"].get("use_gaussian_splatting_densification", False),
          "3DGS densification is not ported yet (ROADMAP, module list item 1.8)"),
-        ("gradslam_data_cfg" in data,
-         "dataset YAML configs are not ported yet (ROADMAP, module list item 1.7)"),
-        (data["densification_image_height"] != data["desired_image_height"]
-         or data["densification_image_width"] != data["desired_image_width"]
-         or data["tracking_image_height"] != data["desired_image_height"]
-         or data["tracking_image_width"] != data["desired_image_width"],
-         "separate tracking/densification resolutions are not ported yet "
-         "(ROADMAP, module list item 1.6)"),
         (bool(config["tracking"].get("visualize_tracking_loss", False)),
          "tracking.visualize_tracking_loss (the per-frame GT/render panel) is not ported yet "
          "(ROADMAP, module list item 1.10)"),
@@ -131,7 +162,7 @@ class SLAMRuntime:
         self.output_dir = os.path.join(config["workdir"], config["run_name"])
         self.eval_dir = os.path.join(self.output_dir, "eval")
         os.makedirs(self.eval_dir, exist_ok=True)
-        self.dataset = dataset_from_config(config["data"])
+        self.dataset, self.densify_dataset, self.tracking_dataset = make_datasets(config)
         num_frames = config["data"].get("num_frames", -1)
         self.num_frames = len(self.dataset) if num_frames == -1 else num_frames
         self.rebin_every = int(config["tpu"]["rebin_every"])
@@ -149,15 +180,27 @@ class SLAMRuntime:
         self.first_frame_w2c = np.linalg.inv(pose_np)
         h, w = color_np.shape[0], color_np.shape[1]
         self.cam = setup_camera(w, h, self.intrinsics, None)
+        # Densification and tracking cameras (splatam_tpu/slam/pipeline.py:
+        # 367-392); the map starts from the densification frame.
+        init_color, init_depth = color_np, depth_np
+        self.densify_cam = self.tracking_cam = self.cam
+        if self.densify_dataset is not None:
+            init_color, init_depth, d_intr, _ = self.densify_dataset[0]
+            self.densify_cam = setup_camera(init_color.shape[1], init_color.shape[0],
+                                            d_intr[:3, :3], None)
+        if self.tracking_dataset is not None:
+            t_color, _, t_intr, _ = self.tracking_dataset[0]
+            self.tracking_cam = setup_camera(t_color.shape[1], t_color.shape[0],
+                                             t_intr[:3, :3], None)
 
         capacity = int(config["tpu"]["capacity"])
-        color, depth = frame_to_tensors(color_np, depth_np, device)
-        pts, cols, mean_sq, valid = steps.first_frame_pointcloud(color, depth, self.cam)
+        color, depth = frame_to_tensors(init_color, init_depth, device)
+        pts, cols, mean_sq, valid = steps.first_frame_pointcloud(color, depth, self.densify_cam)
         while capacity < pts.shape[0]:
             capacity *= 2
         self.gm = G.from_pointcloud(pts, cols, mean_sq, valid, capacity, self.isotropic)
         self.timestep = torch.zeros((capacity,), dtype=torch.float32, device=device)
-        self.scene_radius = float(depth_np.max()) / config["scene_radius_depth_ratio"]
+        self.scene_radius = float(init_depth.max()) / config["scene_radius_depth_ratio"]
 
         self.cam_rots = np.tile(np.array([1, 0, 0, 0], np.float32), (self.num_frames, 1))
         self.cam_trans = np.zeros((self.num_frames, 3), np.float32)
@@ -266,29 +309,77 @@ class SLAMRuntime:
             if time_idx in kf_indices:
                 self.add_keyframe(time_idx, color_np, depth_np)
 
+    def _c2f_levels(self) -> list:
+        """The coarse-to-fine schedule, [(downscale factor, iterations),
+        ...], run before the full-resolution phase; empty unless
+        tracking.coarse_to_fine is enabled (the JAX package's extension,
+        splatam_tpu/slam/pipeline.py:1096-1112)."""
+        c2f = self.config["tracking"].get("coarse_to_fine") or {}
+        if not c2f.get("enabled", False):
+            return []
+        return [(int(f), int(n)) for f, n in c2f.get("levels", []) if int(n) > 0]
+
+    def _c2f_pool(self) -> bool:
+        c2f = self.config["tracking"].get("coarse_to_fine") or {}
+        return c2f.get("downsample", "pool") != "stride"
+
     def track_frame(self, time_idx: int, tr_color, tr_depth) -> None:
+        """Tracking at tracking_cam on the tracking frame: the coarse levels
+        first, each from the pose the previous one reached, then the
+        full-resolution phase (splatam_tpu/slam/pipeline.py:1114-1210).
+        Coarse iterations come out of num_iters (at least 1 full-resolution
+        iteration stays) unless tracking.c2f_extra_iters; the depth-loss
+        threshold applies at full resolution only."""
         cfg_t = self.config["tracking"]
         view = G.slice_prefix(self.gm, self.gm.span())
-        q0 = torch.as_tensor(self.cam_rots[time_idx], device=self.device)
-        t0 = torch.as_tensor(self.cam_trans[time_idx], device=self.device)
-        best_q, best_t, self.iters_run, _, hist = steps.tracking_phase(
-            view, q0, t0, tr_color, tr_depth, self.cam, int(cfg_t["num_iters"]),
+        q = torch.as_tensor(self.cam_rots[time_idx], device=self.device)
+        t = torch.as_tensor(self.cam_trans[time_idx], device=self.device)
+        lr_q, lr_t = float(cfg_t["lrs"]["cam_unnorm_rots"]), float(cfg_t["lrs"]["cam_trans"])
+        levels = self._c2f_levels()
+        full_iters = int(cfg_t["num_iters"])
+        if levels and not cfg_t.get("c2f_extra_iters", False):
+            full_iters = max(full_iters - sum(n for _, n in levels), 1)
+        iters, hists = 0, []
+        pool = self._c2f_pool()
+        for factor, n_it in levels:
+            cam_c = _downscale_camera(self.tracking_cam, factor, pool=pool)
+            if pool:
+                col_c, dep_c = _pool_target(tr_color, tr_depth, factor)
+            else:
+                col_c, dep_c = tr_color[:, ::factor, ::factor], tr_depth[::factor, ::factor]
+            q, t, it_c, _, hist = steps.tracking_phase(
+                view, q, t, col_c, dep_c, cam_c, n_it, False, 0.0, lr_q, lr_t,
+                self.pcfg_track, self.rebin_every, record_hist=self.record_hist)
+            iters += it_c
+            hists.append(hist)
+        best_q, best_t, it_f, _, hist = steps.tracking_phase(
+            view, q, t, tr_color, tr_depth, self.tracking_cam, full_iters,
             bool(cfg_t["use_depth_loss_thres"]), float(cfg_t["depth_loss_thres"]),
-            float(cfg_t["lrs"]["cam_unnorm_rots"]), float(cfg_t["lrs"]["cam_trans"]),
-            self.pcfg_track, self.rebin_every,
+            lr_q, lr_t, self.pcfg_track, self.rebin_every,
             lr_decay_frac=float(cfg_t.get("lr_decay_frac", 1.0)),
             record_hist=self.record_hist,
         )
+        self.iters_run = iters + it_f
         self.cam_rots[time_idx] = best_q.cpu().numpy()
         self.cam_trans[time_idx] = best_t.cpu().numpy()
-        self.tracking_hist = None if hist is None else hist.cpu().numpy()
+        self.tracking_hist = (None if hist is None
+                              else torch.cat(hists + [hist]).cpu().numpy())
+
+    def frame_at(self, dataset, time_idx: int, color, depth):
+        """Frame time_idx of the tracking or densification dataset on the
+        device; (color, depth), the main frame, where that dataset is None
+        (its size is the main one's)."""
+        if dataset is None:
+            return color, depth
+        c, d, _, _ = dataset[time_idx]
+        return frame_to_tensors(c, d, self.device)
 
     def densify_frame(self, time_idx: int, d_color, d_depth) -> None:
         q = torch.as_tensor(self.cam_rots[time_idx], device=self.device)
         t = torch.as_tensor(self.cam_trans[time_idx], device=self.device)
         while True:
             gm2, ts2, _, n_dropped = steps.densify_step(
-                self.gm, self.timestep, d_color, d_depth, q, t, time_idx, self.cam,
+                self.gm, self.timestep, d_color, d_depth, q, t, time_idx, self.densify_cam,
                 float(self.config["mapping"]["sil_thres"]))
             if n_dropped == 0:
                 break
@@ -384,7 +475,8 @@ def run_frame(rt: SLAMRuntime, time_idx: int) -> None:
     pose init, compact, track (or, with tracking.use_gt_poses, take the
     ground-truth pose), densify (unless mapping.add_new_gaussians is off),
     keyframe selection, stage the current frame, map, and append a keyframe
-    every keyframe_every frames.
+    every keyframe_every frames. Tracking and densification read their
+    frames from their own datasets where their sizes differ.
 
     rgbd_slam's frame differs in three places: it adds a keyframe at
     num_frames - 2, adds keyframes only for a finite ground-truth pose, and
@@ -399,9 +491,9 @@ def run_frame(rt: SLAMRuntime, time_idx: int) -> None:
         if rt.config["tracking"].get("use_gt_poses", False):
             rt.set_gt_pose(time_idx, gt_w2c)
         else:
-            rt.track_frame(time_idx, color, depth)
+            rt.track_frame(time_idx, *rt.frame_at(rt.tracking_dataset, time_idx, color, depth))
         if rt.config["mapping"]["add_new_gaussians"]:
-            rt.densify_frame(time_idx, color, depth)
+            rt.densify_frame(time_idx, *rt.frame_at(rt.densify_dataset, time_idx, color, depth))
     selected = rt.select_keyframes(time_idx, depth_np)
     rt._stage_keyframe(rt.kf_scratch_slot, color_np, depth_np)
     rt.map_frame(time_idx, selected)
@@ -434,7 +526,8 @@ def rgbd_slam(config: dict, device="cuda") -> dict:
 
     Per frame: pose init, compact, tracking (or the ground-truth pose), a
     progress report at frame 0 and every report_global_progress_every
-    frames, densify and map every map_every frames, a keyframe every
+    frames (at the tracking size), densify (at the densification size) and
+    map every map_every frames, a keyframe every
     keyframe_every frames and at num_frames - 2 (only for a finite
     ground-truth pose), and a checkpoint every checkpoint_interval frames
     (save_checkpoints). Then eval_sequence on the final map and
@@ -468,12 +561,13 @@ def rgbd_slam(config: dict, device="cuda") -> dict:
         gt_w2c = np.linalg.inv(gt_pose)
         rt.gt_w2c_all.append(gt_w2c)
         color, depth = frame_to_tensors(color_np, depth_np, rt.device)
+        tr_color, tr_depth = rt.frame_at(rt.tracking_dataset, time_idx, color, depth)
         rt.compact()
         rt.init_pose(time_idx)
 
         tracking_start = time.time()
         if time_idx > 0 and not use_gt_poses:
-            rt.track_frame(time_idx, color, depth)
+            rt.track_frame(time_idx, tr_color, tr_depth)
             stats["tracking_iter_time_count"] += rt.iters_run
             stats["tracking_frame_time_count"] += 1
             if logger.enabled and rt.tracking_hist is not None:
@@ -494,7 +588,7 @@ def rgbd_slam(config: dict, device="cuda") -> dict:
         if time_idx == 0 or (time_idx + 1) % config["report_global_progress_every"] == 0:
             m = report_progress(
                 G.slice_prefix(rt.gm, rt.gm.span()), rt.cam_rots[time_idx],
-                rt.cam_trans[time_idx], color, depth, rt.cam, cfg_t["sil_thres"],
+                rt.cam_trans[time_idx], tr_color, tr_depth, rt.tracking_cam, cfg_t["sil_thres"],
                 tracking=True, gt_w2c_list=rt.gt_w2c_all,
                 est_w2c_list=[_w2c_from_qt(rt.cam_rots[i], rt.cam_trans[i])
                               for i in range(time_idx + 1)])
@@ -507,7 +601,8 @@ def rgbd_slam(config: dict, device="cuda") -> dict:
 
         if time_idx == 0 or (time_idx + 1) % config["map_every"] == 0:
             if cfg_m["add_new_gaussians"] and time_idx > 0:
-                rt.densify_frame(time_idx, color, depth)
+                rt.densify_frame(time_idx, *rt.frame_at(rt.densify_dataset, time_idx, color,
+                                                         depth))
             selected = rt.select_keyframes(time_idx, depth_np)
             rt._stage_keyframe(rt.kf_scratch_slot, color_np, depth_np)
             mapping_start = time.time()

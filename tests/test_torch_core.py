@@ -155,10 +155,10 @@ def test_adam_matches_jax():
 
 def test_port_never_imports_jax():
     """Importing every module of the port leaves jax (and the loaders'
-    cv2 / imageio / yaml, and the plots', progress bars' and logger's
-    matplotlib / tqdm / wandb, which the GPU machine lacks) out of
-    sys.modules (the last three where importing torch did not already
-    bring them in)."""
+    cv2 / imageio / yaml and Pillow, and the plots', progress bars' and
+    logger's matplotlib / tqdm / wandb, which the GPU machine lacks or may
+    lack) out of sys.modules (the last four where importing torch did not
+    already bring them in)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import torch\n"
@@ -168,7 +168,8 @@ def test_port_never_imports_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'splatam_tpu.')))\n"
         "bad += [k for k in ('cv2', 'imageio', 'yaml') if k in sys.modules]\n"
-        "bad += [k for k in ('matplotlib', 'tqdm', 'wandb') if k in sys.modules and k not in before]\n"
+        "bad += [k for k in ('PIL', 'matplotlib', 'tqdm', 'wandb')\n"
+        "        if k in sys.modules and k not in before]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

@@ -574,3 +574,50 @@ def test_eval_sequence_on_the_card_launches_k1(slam_runs, tmp_path):
                           eval_every=config["eval_every"], device="cuda", save_plots=False)
     assert launch_counts()["composite_forward"] >= 3
     assert again == {k: v for k, v in metrics.items() if k != "runtime"}
+
+
+@pytest.fixture(scope="module")
+def replica_v2_runs(tmp_path_factory):
+    """rgbd_slam of configs/replica_v2/splatam.py (cut to 48x64, 3 frames, 6
+    tracking / 8 mapping iterations) on a Replica-V2 tree of the synthetic
+    scene at the YAML's 1200x680 camera, written by data/export.py (no
+    imaging library), on the card and on the CPU, each seeded at 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+
+    from splatam_tpu_torch.data.export import synthetic_sequence, write_replica_v2
+    from splatam_tpu_torch.slam.config import load_experiment_config, seed_everything
+    from splatam_tpu_torch.slam.pipeline import rgbd_slam
+
+    root = str(tmp_path_factory.mktemp("replica_v2"))
+    os.symlink(os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "configs"),
+               os.path.join(root, "configs"))
+    ds = synthetic_sequence(3, 680, 1200, fx=600.0, fy=600.0, cx=599.5, cy=339.5)
+    write_replica_v2(os.path.join(root, "data", "Replica_V2", "room_0"), ds, range(3))
+    here, out = os.getcwd(), {}
+    os.chdir(root)
+    try:
+        for dev in ("cuda", "cpu"):
+            config = load_experiment_config(os.path.join("configs", "replica_v2", "splatam.py"))
+            config["workdir"] = os.path.join(root, dev)
+            config["data"].update(desired_image_height=48, desired_image_width=64, num_frames=3)
+            config["tracking"]["num_iters"] = 6
+            config["mapping"]["num_iters"] = 8
+            seed_everything(0)
+            out[dev] = (config, rgbd_slam(config, dev))
+    finally:
+        os.chdir(here)
+    return out
+
+
+def test_replica_v2_config_on_the_card_matches_cpu(replica_v2_runs):
+    """The real-format path (ReplicaV2 loader, dataset YAML, rebin_every=1:
+    K1, K2 and K3 at 11 columns) on the card: poses within 1e-4 of the CPU
+    run, equal keyframes, finite metrics."""
+    (gcfg, gm), (ccfg, cm) = replica_v2_runs["cuda"], replica_v2_runs["cpu"]
+    mine, ref = _params(gcfg), _params(ccfg)
+    np.testing.assert_allclose(mine["cam_unnorm_rots"], ref["cam_unnorm_rots"], atol=1e-4)
+    np.testing.assert_allclose(mine["cam_trans"], ref["cam_trans"], atol=1e-4)
+    assert mine["keyframe_time_indices"].tolist() == ref["keyframe_time_indices"].tolist()
+    assert all(np.isfinite(gm[k]) for k in ("psnr", "ms_ssim", "depth_l1", "ate_rmse"))

@@ -61,11 +61,18 @@ def _jax_frame(rt, time_idx):
     """rgbd_slam's frame (splatam_tpu/slam/pipeline.py:1642-1760): pose
     init honouring tracking.forward_prop, tracking or the ground-truth pose
     (tracking.use_gt_poses), densify unless mapping.add_new_gaussians is off
-    (:1732), keyframes, map."""
+    (:1732), keyframes, map; tracking and densification read their frames
+    from their own datasets where the config gives them sizes of their own
+    (:1641-1645, :1733-1737)."""
     color_np, depth_np, _, gt_pose = rt.dataset[time_idx]
     gt_w2c = np.linalg.inv(gt_pose)
     rt.gt_w2c_all.append(gt_w2c)
     color, depth = _frame_to_device(color_np, depth_np)
+    tr_color, tr_depth, d_color, d_depth = color, depth, color, depth
+    if rt.tracking_dataset is not None:
+        tr_color, tr_depth = _frame_to_device(*rt.tracking_dataset[time_idx][:2])
+    if rt.densify_dataset is not None:
+        d_color, d_depth = _frame_to_device(*rt.densify_dataset[time_idx][:2])
     if time_idx > 0:
         if time_idx > 1 and rt.config["tracking"]["forward_prop"]:
             p1 = rt.cam_rots[time_idx - 1] / np.linalg.norm(rt.cam_rots[time_idx - 1])
@@ -83,9 +90,9 @@ def _jax_frame(rt, time_idx):
             rt.cam_rots[time_idx] = _quat_from_w2c(gt_w2c)
             rt.cam_trans[time_idx] = gt_w2c[:3, 3]
         else:
-            rt.track_frame(time_idx, color, depth)
+            rt.track_frame(time_idx, tr_color, tr_depth)
         if rt.config["mapping"]["add_new_gaussians"]:
-            rt.densify_frame(time_idx, color, depth)
+            rt.densify_frame(time_idx, d_color, d_depth)
     selected = rt.select_keyframes(time_idx, depth_np)
     rt._stage_keyframe(rt.kf_scratch_slot, color_np, depth_np)
     rt.map_frame(time_idx, selected)
@@ -98,11 +105,13 @@ def _jax_frame(rt, time_idx):
         rt.keyframe_time_indices.append(time_idx)
 
 
-def run_both(tmp_path, frames=FRAMES, **overrides):
-    """Run the JAX package's and the port's loops on one config; returns
-    (port runtime, JAX runtime, port active counts, JAX active counts)."""
+def run_both(tmp_path, frames=FRAMES, make_config=None, **overrides):
+    """Run the JAX package's and the port's loops on one config (the micro
+    config, or make_config(tmp_path, **overrides)); returns (port runtime,
+    JAX runtime, port active counts, JAX active counts)."""
+    make_config = make_config or _config
     seed_everything(0)
-    jrt = JRuntime(_config(tmp_path, **overrides))
+    jrt = JRuntime(make_config(tmp_path, **overrides))
     j_active = []
     for i in range(frames):
         _jax_frame(jrt, i)
@@ -110,7 +119,7 @@ def run_both(tmp_path, frames=FRAMES, **overrides):
     jrt.shutdown()
 
     seed_everything(0)
-    rt = SLAMRuntime(_config(tmp_path, **overrides), "cpu")
+    rt = SLAMRuntime(make_config(tmp_path, **overrides), "cpu")
     t_active = []
     for i in range(frames):
         run_frame(rt, i)
@@ -176,7 +185,6 @@ def test_add_new_gaussians_off_skips_densification(tmp_path):
 
 
 @pytest.mark.parametrize("override, item", [
-    ({"tracking": {"coarse_to_fine": {"enabled": True}}}, "module list item 1.6"),
     ({"tpu": {"spatial_shards": 2}}, "module list item 1.11"),
     ({"mapping": {"use_gaussian_splatting_densification": True}}, "module list item 1.8"),
     ({"tracking": {"visualize_tracking_loss": True}}, "module list item 1.10"),
