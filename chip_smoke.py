@@ -87,7 +87,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
      `configs/replica_v2/splatam.py` with coarse-to-fine tracking (levels
      [[4, 10], [2, 10]], pooled), 4 frames: finite poses, K1, K2 and K3 at
      11 columns launched and no other kernel, the K2 launches per frame the
-     config's iterations imply, finite quality metrics.
+     config's iterations imply, finite quality metrics;
+ 13. paths 8-10, the 3DGS training programs: path 8,
+     `configs/replica/gaussian_splatting.py` as written (init 300x170,
+     mapping 600x340, anisotropic, its densify_dict) on path 5's tree
+     through `python -m splatam_tpu_torch.scripts.gaussian_splatting`, cut
+     to 1,500 iterations with its intermediate eval at 1,000; path 9,
+     `configs/replica/post_splatam_opt.py` as written on path 5's tree and
+     params.npz, cut to 1,000 iterations: K1, K2 and K3-11 launched and no
+     other kernel, K2 once per training iteration, a densify pass that
+     cloned or split, eval_1k/ (path 8) and eval/ written, finite quality,
+     params.npz with [N, 3] log-scales (path 8; path 9 keeps the
+     checkpoint's, isotropic), path 9's poses equal to the checkpoint's bit
+     for bit; path 10, path 1's configuration with
+     in-loop 3DGS (`mapping.use_gaussian_splatting_densification`), 4
+     frames: K4 and K5 (tracking) and K1, K2 and K3-11 (mapping on the
+     generic render, K2 once per mapping iteration), K3-8 never. Each prints
+     its wall time, ms per training iteration and peak memory. Then, in
+     this process, K1, K2 and K3-11 on the inputs each trained map gives
+     them (paths 8 and 9: params.npz at its 600x340 mapping camera and last
+     pose; path 10: the final map at its last pose, with K4, K5 and K3-8
+     too) against their plain versions as in phase 5 (K1 bit for bit) and
+     twice each where the sums have a fixed order.
 A device-busy time (phases 6, 7, 10) counts only where torch.profiler
 recorded every launch of the port's kernels that the wrappers counted in
 its window; elsewhere it prints as unverified.
@@ -123,6 +144,14 @@ RESUME_AT = 3
 FRAMES_REPLICA, NVS_FRAMES = 6, 3  # paths 5 and 7a: the Replica-V2 tree's train and held-out frames
 FRAMES_TUM = 5  # path 6
 FRAMES_C2F = 4  # path 7b
+FRAMES_GS_LOOP = 4  # path 10
+# Paths 8 and 9: the configs' only cuts, of depth (their iterations; the
+# frame counts to what path 5's tree holds).
+GS_ITERS, GS_EVAL_AT, POST_ITERS = 1500, [1000], 1000
+# Path 10: configs/synthetic/splatam.py's densify_dict, with a schedule that
+# fires within the loop's 60 mapping iterations a frame (its own
+# start_after=500 never would).
+GS_LOOP_SCHEDULE = dict(start_after=20, densify_every=20, stop_after=60)
 C2F = {"enabled": True, "levels": [[4, 10], [2, 10]], "downsample": "pool"}
 # params.npz's keys (tests/test_slam_pipeline.py:58-64)
 PARAM_KEYS = ("means3D", "rgb_colors", "unnorm_rotations", "logit_opacities", "log_scales",
@@ -211,6 +240,10 @@ PATH_KERNELS = {
     "path 6": GENERIC,
     "path 7a": GENERIC,
     "path 7b": GENERIC,
+    "path 8": GENERIC,
+    "path 9": GENERIC,
+    "path 10": (("composite_forward", "composite_backward", "segment_reduce11", "fused_forward",
+                 "fused_backward"), ("segment_reduce", *PROBES)),
     "probes": (("fused_forward", *PROBES),
                ("composite_forward", "composite_backward", "fused_backward", "segment_reduce",
                 "segment_reduce11")),
@@ -243,14 +276,11 @@ def kernel_inputs(gm, q, t, cam, seed: int) -> SimpleNamespace:
     """Every SLAM-loop kernel's inputs at one scene, from the port's own
     structure builds and renders: the fused path's (world-8 structure, the
     per-Gaussian world rows it was gathered from, pose, K4's state, seeded
-    cotangents, K5's per-pair gradients) and the generic
-    render's (K1's attrs and bins, K1's state, seeded cotangents with the
-    silhouette's, K2's output feeding K3 at 11 columns)."""
+    cotangents, K5's per-pair gradients) and generic_inputs'."""
     import torch
 
-    from splatam_tpu_torch.render import api, binning, composite, fused_iso
+    from splatam_tpu_torch.render import fused_iso
     from splatam_tpu_torch.scripts import scene
-    from splatam_tpu_torch.slam import steps
 
     w, h = cam.width, cam.height
     ps, pose = scene.fused_inputs(gm, q, t, cam)
@@ -261,6 +291,21 @@ def kernel_inputs(gm, q, t, cam, seed: int) -> SimpleNamespace:
     with torch.no_grad():
         rows8 = fused_iso.pack_world8(gm.means3d, gm.logit_opacities, gm.log_scales,
                                       gm.rgb_colors, gm.active)
+    x = generic_inputs(gm, q, t, cam, gen)
+    x.__dict__.update(ps=ps, pose=pose, state=state, g=g, dpair=dpair, rows8=rows8)
+    return x
+
+
+def generic_inputs(gm, q, t, cam, gen) -> SimpleNamespace:
+    """The generic render's kernel inputs at one scene, isotropic or not:
+    K1's attrs and bins, K1's state, cotangents with the silhouette's drawn
+    from gen, K2's output feeding K3 at 11 columns."""
+    import torch
+
+    from splatam_tpu_torch.render import api, binning, composite
+    from splatam_tpu_torch.slam import steps
+
+    w, h = cam.width, cam.height
     means_cam, rots = steps.transform_to_frame(gm, q, t, False, False)
     proj, aux = api.project_gaussians(cam, means_cam, rots, gm.logit_opacities,
                                       gm.log_scales, gm.active)
@@ -271,16 +316,17 @@ def kernel_inputs(gm, q, t, cam, seed: int) -> SimpleNamespace:
     gstate = composite.composite_forward(attrs, b.pair_gauss, b.tile_start, w, h)
     g2 = torch.randn((6, h, w), device=q.device, generator=gen)
     dgen = composite.composite_backward(attrs, b.pair_gauss, b.tile_start, w, h, gstate, g2)
-    return SimpleNamespace(w=w, h=h, ps=ps, pose=pose, state=state, g=g, dpair=dpair,
-                           rows8=rows8, attrs=attrs, b=b, gstate=gstate, g2=g2, dgen=dgen)
+    return SimpleNamespace(w=w, h=h, attrs=attrs, b=b, gstate=gstate, g2=g2, dgen=dgen)
 
 
-def kernel_cases(x):
-    """(name, kernel call, plain call) for the six SLAM-loop kernels."""
+def kernel_cases(x, names=None):
+    """(name, kernel call, plain call) for the six SLAM-loop kernels, or
+    for those in names (GENERIC[0] needs only generic_inputs)."""
     from splatam_tpu_torch.render import composite, fused_iso
 
-    ps, b, w, h = x.ps, x.b, x.w, x.h
-    return [
+    b, w, h = x.b, x.w, x.h
+    ps = getattr(x, "ps", None)
+    cases = [
         ("composite_forward",
          lambda: composite.composite_forward(x.attrs, b.pair_gauss, b.tile_start, w, h),
          lambda: composite.composite_forward_plain(x.attrs, b.pair_gauss, b.tile_start, w, h)),
@@ -303,6 +349,47 @@ def kernel_cases(x):
          lambda: composite.segment_reduce(x.dgen, b.dst, b.offsets, b.counts),
          lambda: composite.segment_reduce_plain(x.dgen, b.dst, b.offsets, b.counts)),
     ]
+    return [c for c in cases if names is None or c[0] in names]
+
+
+def check_trained_map(gm, q, t, cam, label: str, names=GENERIC[0]) -> None:
+    """The kernels in names on the inputs a trained map gives them at one
+    pose: each against its plain version (K1 bit for bit, n_contrib exact)
+    and the deterministic ones launched twice. These launches come after the
+    path's counts were read."""
+    import torch
+
+    span = gm.span()
+    view = type(gm)(*(a[:span] for a in gm))
+    if "fused_forward" in names:
+        x = kernel_inputs(view, q, t, cam, seed=4)
+    else:
+        x = generic_inputs(view, q, t, cam, torch.Generator(q.device).manual_seed(4))
+    label = (f"{label} map, {cam.width}x{cam.height}, {span} Gaussians, {x.b.n_pairs} pairs "
+             f"(generic)")
+    cases = kernel_cases(x, names)
+    check_cases(cases, label)
+    check_repeat(cases, label)
+    del x, cases, view
+    torch.cuda.empty_cache()
+
+
+def check_trained_params(params: dict, label: str, device) -> None:
+    """check_trained_map on a params.npz: its map at its mapping camera
+    (org_width x org_height, its intrinsics) and its last frame's pose."""
+    import numpy as np
+    import torch
+
+    from splatam_tpu_torch.core import gaussians as G
+    from splatam_tpu_torch.core.camera import setup_camera
+
+    gm = G.from_params_dict(params, device)
+    cam = setup_camera(int(params["org_width"]), int(params["org_height"]),
+                       np.asarray(params["intrinsics"], np.float32)[:3, :3], None)
+    q = torch.as_tensor(np.asarray(params["cam_unnorm_rots"], np.float32)[0, :, -1],
+                        device=device)
+    t = torch.as_tensor(np.asarray(params["cam_trans"], np.float32)[0, :, -1], device=device)
+    check_trained_map(gm, q, t, cam, f"{label} trained")
 
 
 def probe_cases(ps, pose, w: int, h: int):
@@ -1097,11 +1184,14 @@ def write_trees(work: str) -> str:
 # Runs a CLI module's main() as `python -m <module> <args>` does, then
 # writes the process's launch counts and main()'s return value to a file.
 CLI = ("import importlib, json, sys\n"
+       "import torch\n"
        "out, sys.argv = sys.argv[1], sys.argv[2:]\n"
        "metrics = importlib.import_module(sys.argv[0]).main()\n"
        "from splatam_tpu_torch.scripts.harness import launch_counts\n"
+       "peak = torch.cuda.max_memory_allocated() / 2**30\n"
        "with open(out, 'w') as f:\n"
-       "    json.dump({'launches': launch_counts(), 'metrics': metrics}, f, default=float)\n")
+       "    json.dump({'launches': launch_counts(), 'metrics': metrics, 'peak_gib': peak}, f,\n"
+       "              default=float)\n")
 
 
 def run_cli(real: str, module: str, config: str, label: str):
@@ -1122,8 +1212,8 @@ def run_cli(real: str, module: str, config: str, label: str):
         fail(f"{label}: python -m {module} {config} exited {res.returncode}")
     with open(out) as f:
         got = json.load(f)
-    print(f"{label}: python -m {module} {config}: {time.time() - t0:.1f} s with its start",
-          flush=True)
+    print(f"{label}: python -m {module} {config}: {time.time() - t0:.1f} s with its start, "
+          f"peak memory allocated {got['peak_gib']:.2f} GiB", flush=True)
     check_launches(label, got["launches"])
     return got["launches"], got["metrics"]
 
@@ -1181,8 +1271,9 @@ def finite_poses(params_path: str, label: str) -> None:
         fail(f"{label}: non-finite poses")
 
 
-def drive_real(work: str, device, card: str) -> dict:
-    """Paths 5-7 (see the module docstring). Returns their launch counts."""
+def drive_real(real: str, work: str, device, card: str) -> dict:
+    """Paths 5-7 (see the module docstring) in the working directory
+    write_trees made. Returns their launch counts."""
     from splatam_tpu_torch.slam.config import load_experiment_config
 
     try:
@@ -1190,7 +1281,6 @@ def drive_real(work: str, device, card: str) -> dict:
         print(f"Pillow {PIL.__version__} imports", flush=True)
     except ImportError:
         print("Pillow is not installed: PNG trees are read by read_png", flush=True)
-    real = write_trees(work)
     launches = {}
 
     # Path 5: Replica-V2 through the CLI, then the NVS eval on its params.npz.
@@ -1247,6 +1337,152 @@ def drive_real(work: str, device, card: str) -> dict:
         if rt.iters_run != track:
             fail(f"path 7b: {rt.iters_run} tracking iterations, the config implies {track}")
         del rt
+    return launches
+
+
+def check_training(label: str, metrics: dict, launches: dict, iters: int, run_dir: str,
+                   evals: tuple, scales: int, card: str) -> dict:
+    """Paths 8 and 9: K2 once per training iteration, the densify passes
+    (one must clone or split), the eval directories, finite quality and
+    params.npz with `scales` log-scale columns. Returns params.npz."""
+    import numpy as np
+
+    if launches["composite_backward"] != iters:
+        fail(f"{label}: {launches['composite_backward']} K2 launches for {iters} iterations")
+    passes = metrics["densify_passes"]
+    for p in passes:
+        print(f"{label} densify at iteration {p['iteration']}: cloned {p['cloned']}, split "
+              f"{p['split']}, {p['active']} Gaussians active", flush=True)
+    if not any(p["cloned"] + p["split"] for p in passes):
+        fail(f"{label}: no densify pass cloned or split")
+    for name in evals:
+        if not os.path.isdir(os.path.join(run_dir, name)) or not os.listdir(
+                os.path.join(run_dir, name)):
+            fail(f"{label}: {name}/ was not written")
+    report_quality(label, metrics, card)
+    tr = metrics["training"]
+    print(f"{label}: {iters} training iterations at {tr['iter_ms']:.2f} ms each (wall, with "
+          f"the frame reads), {len(passes)} densify passes at {tr['pass_ms']:.1f} ms each "
+          f"({card})", flush=True)
+    params = _load_params(os.path.join(run_dir, "params.npz"), label)
+    if params["log_scales"].ndim != 2 or params["log_scales"].shape[1] != scales:
+        fail(f"{label}: params.npz log_scales {params['log_scales'].shape}, expected "
+             f"[N, {scales}]")
+    return params
+
+
+def training_experiment(real: str, name: str, base: str, data: dict, train: dict) -> str:
+    """An experiment file in `real` that loads the repo config `base` and
+    updates its data and train sections; prints the changes."""
+    path = os.path.join(real, name)
+    with open(path, "w") as f:
+        f.write("from importlib.machinery import SourceFileLoader\n"
+                f"config = SourceFileLoader('base', {base!r}).load_module().config\n"
+                f"config['data'].update({data!r})\n"
+                f"config['train'].update({train!r})\n")
+    print(f"{name}: {base} with data {data}, train {train}", flush=True)
+    return name
+
+
+def drive_training(real: str, work: str, device, card: str) -> dict:
+    """Paths 8-10 (see the module docstring). Returns their launch counts."""
+    import numpy as np
+    import torch
+
+    from splatam_tpu_torch.slam.config import load_experiment_config
+
+    tree = dict(basedir="./data/Replica_V2", sequence="room_0",
+                gradslam_data_cfg="./configs/data/replica_v2.yaml")
+    launches = {}
+    with working_dir(real):
+        base = load_experiment_config("configs/replica/gaussian_splatting.py")
+    print(f"path 8 cuts: num_iters_mapping {base['train']['num_iters_mapping']} -> {GS_ITERS}; "
+          f"eval_intermediate_at [7000] -> {GS_EVAL_AT}; num_frames "
+          f"{base['data']['num_frames']} and eval_num_frames {base['data']['eval_num_frames']} "
+          f"-> the tree's (-1)", flush=True)
+    exp = training_experiment(real, "path8_gaussian_splatting.py",
+                              "configs/replica/gaussian_splatting.py",
+                              dict(tree, num_frames=-1, eval_num_frames=-1),
+                              dict(num_iters_mapping=GS_ITERS, eval_intermediate_at=GS_EVAL_AT))
+    launches["path 8"], metrics = run_cli(
+        real, "splatam_tpu_torch.scripts.gaussian_splatting", exp, "path 8")
+    params = check_training("path 8", metrics, launches["path 8"], GS_ITERS,
+                            os.path.join(real, "experiments", "Replica_GS", "room0_0"),
+                            ("eval_1k", "eval"), 3, card)
+    check_trained_params(params, "path 8", device)
+    del params
+    torch.cuda.empty_cache()
+
+    ckpt = "./experiments/ReplicaV2/room_0_0/params.npz"
+    print(f"path 9 cuts: num_iters_mapping 15000 -> {POST_ITERS}; param_ckpt_path -> path 5's "
+          f"{ckpt}", flush=True)
+    exp = training_experiment(real, "path9_post_splatam_opt.py",
+                              "configs/replica/post_splatam_opt.py",
+                              dict(tree, param_ckpt_path=ckpt),
+                              dict(num_iters_mapping=POST_ITERS))
+    launches["path 9"], metrics = run_cli(
+        real, "splatam_tpu_torch.scripts.post_splatam_opt", exp, "path 9")
+    # The map keeps the checkpoint's distribution (path 5's is isotropic).
+    src = np.load(os.path.join(real, ckpt))
+    params = check_training("path 9", metrics, launches["path 9"], POST_ITERS,
+                            os.path.join(real, "experiments", "Replica_PostOpt", "room0_seed0"),
+                            ("eval",), src["log_scales"].shape[1], card)
+    same = all(np.array_equal(params[k], src[k]) for k in ("cam_unnorm_rots", "cam_trans"))
+    print(f"path 9: poses equal to the checkpoint's bit for bit: {same}; "
+          f"{len(src['means3D'])} Gaussians in, {len(params['means3D'])} out", flush=True)
+    if not same:
+        fail("path 9: the poses differ from the checkpoint's")
+    check_trained_params(params, "path 9", device)
+    del params, src
+    torch.cuda.empty_cache()
+    launches["path 10"] = drive_gs_loop(work, device, card)
+    return launches
+
+
+def drive_gs_loop(work: str, device, card: str) -> dict:
+    """Path 10: in-loop 3DGS on path 1's configuration; mapping's wall per
+    frame is read around map_frame. Returns its launch counts."""
+    import torch
+
+    from splatam_tpu_torch.slam.config import load_experiment_config
+    from splatam_tpu_torch.slam.pipeline import SLAMRuntime
+
+    densify = copy.deepcopy(load_experiment_config(os.path.join(
+        ROOT, "configs", "synthetic", "splatam.py"))["mapping"]["densify_dict"])
+    densify.update(GS_LOOP_SCHEDULE)
+    config = bench_config(work, mapping=dict(use_gaussian_splatting_densification=True,
+                                             densify_dict=densify))
+    mapping = config["mapping"]["num_iters"]
+    map_frame, map_s = SLAMRuntime.map_frame, []
+
+    def timed(rt, *args):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        map_frame(rt, *args)
+        torch.cuda.synchronize()
+        map_s.append(time.time() - t0)
+
+    SLAMRuntime.map_frame = timed
+    try:
+        rt, launches = drive_path("path 10", config, FRAMES_GS_LOOP, device,
+                                  k2_per_frame=(mapping, mapping))
+    finally:
+        SLAMRuntime.map_frame = map_frame
+    for p in rt.gs_passes:
+        print(f"path 10 frame {p['frame']} densify at iteration {p['iteration']}: cloned "
+              f"{p['cloned']}, split {p['split']}, {p['active']} Gaussians active", flush=True)
+    if len(rt.gs_passes) != FRAMES_GS_LOOP * len(range(
+            GS_LOOP_SCHEDULE["start_after"], GS_LOOP_SCHEDULE["stop_after"] + 1,
+            GS_LOOP_SCHEDULE["densify_every"])):
+        fail(f"path 10: {len(rt.gs_passes)} densify passes")
+    print(f"path 10: mapping {', '.join(f'{s:.3f}' for s in map_s)} s per frame, "
+          f"{1e3 * sum(map_s[1:]) / (mapping * (len(map_s) - 1)):.2f} ms per mapping iteration "
+          f"after frame 0 with the passes ({card})", flush=True)
+    last = FRAMES_GS_LOOP - 1
+    check_trained_map(rt.gm, torch.as_tensor(rt.cam_rots[last], device=device),
+                      torch.as_tensor(rt.cam_trans[last], device=device), rt.cam,
+                      "path 10 final", names=tuple(KERNEL_INFO))
+    del rt
     return launches
 
 
@@ -1349,7 +1585,10 @@ def main() -> None:
 
     launches.update(drive_slam(work, device, card))
     torch.cuda.empty_cache()
-    launches.update(drive_real(work, device, card))
+    real = write_trees(work)
+    launches.update(drive_real(real, work, device, card))
+    torch.cuda.empty_cache()
+    launches.update(drive_training(real, work, device, card))
 
     rows = []
     for name, (replaces, source) in KERNELS.items():

@@ -97,6 +97,21 @@ def compact(gm: GaussianMap, timestep: torch.Tensor):
     return _gather(gm, order), timestep[order]
 
 
+def compact_with(gm: GaussianMap, timestep: torch.Tensor, extras):
+    """compact() that applies the same permutation to per-slot auxiliaries
+    (Adam moments, densification statistics): extras is a tensor or a
+    (named) tuple of them, nested to any depth, and comes back in the same
+    structure (splatam_tpu/core/gaussians.py:131-148)."""
+    order = torch.argsort((~gm.active).to(torch.int8), stable=True)
+
+    def g(x):
+        if isinstance(x, torch.Tensor):
+            return x[order]
+        return type(x)(*map(g, x)) if hasattr(x, "_fields") else type(x)(map(g, x))
+
+    return _gather(gm, order), timestep[order], g(extras)
+
+
 def slice_prefix(gm: GaussianMap, n: int) -> GaussianMap:
     return GaussianMap(*(a[:n] for a in gm))
 
@@ -113,6 +128,12 @@ def grow_capacity(gm: GaussianMap, new_capacity: int) -> GaussianMap:
         raise ValueError("capacity can only grow")
     fresh = empty_map(new_capacity - gm.capacity, gm.isotropic, gm.device)
     return GaussianMap(*(torch.cat([a, f]) for a, f in zip(gm, fresh)))
+
+
+def grow_with_timestep(gm: GaussianMap, timestep, new_capacity: int):
+    """grow_capacity, with the per-slot timestep padded by zeros alike."""
+    pad = timestep.new_zeros(new_capacity - timestep.shape[0])
+    return grow_capacity(gm, new_capacity), torch.cat([timestep, pad])
 
 
 def compact_to_numpy(gm: GaussianMap) -> dict:

@@ -57,9 +57,11 @@ def get_dataset(config_dict, basedir, sequence, **kwargs):
 
 
 def _dataset_maker(data: dict):
-    """make(h, w): the dataset an experiment config's `data` section names,
-    at h x w, as the reference package's runtime builds it
-    (splatam_tpu/slam/pipeline.py _make_datasets): the YAML named by
+    """make(h, w, stride=None): the dataset an experiment config's `data`
+    section names, at h x w and the given stride (the section's `stride`
+    where None), as the reference package's runtime and offline programs
+    build it (splatam_tpu/slam/pipeline.py _make_datasets,
+    scripts/gaussian_splatting.py:40-60): the YAML named by
     gradslam_data_cfg, or the section's dataset_name (the synthetic
     sequence takes its knobs from the section)."""
     if "gradslam_data_cfg" not in data:
@@ -72,14 +74,14 @@ def _dataset_maker(data: dict):
             if knob in data:
                 gradslam_data_cfg.setdefault(knob, data[knob])
 
-    def make(h, w):
+    def make(h, w, stride=None):
         return get_dataset(
             config_dict=gradslam_data_cfg,
             basedir=data.get("basedir", ""),
             sequence=os.path.basename(str(data.get("sequence", ""))),
             start=data.get("start", 0),
             end=data.get("end", -1),
-            stride=data.get("stride", 1),
+            stride=data.get("stride", 1) if stride is None else stride,
             desired_height=h,
             desired_width=w,
             relative_pose=True,

@@ -325,8 +325,9 @@ def eval_sequence(dataset, final_params: dict, num_frames: int, eval_dir: str,
                   lpips_weights: str | None = None) -> dict:
     """The reference's eval(): renders each evaluated frame at its
     estimated pose; returns the summary metric dict. Only a failed
-    trajectory alignment (evaluate_ate's SVD) is caught, and gives the
-    reference's ATE of 100.0; a failed render ends the evaluation."""
+    trajectory alignment (evaluate_ate's SVD, or evaluated frames that do
+    not cover the trajectory) is caught, and gives the reference's ATE of
+    100.0; a failed render ends the evaluation."""
     print("Evaluating Final Parameters ...")
     os.makedirs(eval_dir, exist_ok=True)
     plot_dir = os.path.join(eval_dir, "plots")
@@ -363,13 +364,21 @@ def eval_sequence(dataset, final_params: dict, num_frames: int, eval_dir: str,
                                   "%04d" % time_idx)
 
     nf = final_params["cam_unnorm_rots"].shape[-1]
-    valid_gt, est = est_w2c_list_from_params(final_params, nf, gt_w2c_list)
-    try:
-        ate_rmse = evaluate_ate(valid_gt, est)
-        print("Final Average ATE RMSE: {:.2f} cm".format(ate_rmse * 100))
-    except np.linalg.LinAlgError:
+    ate_rmse = None
+    # Evaluated frames at another stride, or fewer, than the trajectory's
+    # (the offline programs' eval_stride) do not cover it; the reference
+    # package's catch-all then gives 100 as for a failed alignment.
+    if nf <= len(gt_w2c_list):
+        valid_gt, est = est_w2c_list_from_params(final_params, nf, gt_w2c_list)
+        try:
+            ate_rmse = evaluate_ate(valid_gt, est)
+        except np.linalg.LinAlgError:
+            pass
+    if ate_rmse is None:
         ate_rmse = 100.0
         print("Failed to evaluate trajectory with alignment.")
+    else:
+        print("Final Average ATE RMSE: {:.2f} cm".format(ate_rmse * 100))
 
     metrics = {
         "psnr": float(np.mean(psnr_list)),

@@ -28,6 +28,7 @@ class RenderOutput(NamedTuple):
     depth: torch.Tensor  # [H, W] composited z
     silhouette: torch.Tensor  # [H, W] accumulated opacity
     depth_sq: torch.Tensor  # [H, W] composited z^2
+    radii: torch.Tensor  # [N] int32 screen radius of this call's projection (0 = culled)
     n_pairs: int  # (gaussian, tile) pairs binned
 
 
@@ -76,15 +77,24 @@ def compute_pair_structure(cam: Camera, means3d, unnorm_rotations, logit_opaciti
     return PairStructure(b.pair_gauss, b.tile_start, b.offsets, b.counts, b.dst, b.n_pairs)
 
 
-def _public(img, n_pairs) -> RenderOutput:
+def _public(img, radii, n_pairs) -> RenderOutput:
     """Rows [r, g, b, z, z^2, sil, ...] -> RenderOutput."""
     return RenderOutput(im=img[:3], depth=img[3], silhouette=img[5], depth_sq=img[4],
-                        n_pairs=n_pairs)
+                        radii=radii, n_pairs=n_pairs)
+
+
+def _no_radii(ps: PairStructure) -> torch.Tensor:
+    """All-zero radii, one per Gaussian of the structure: the renders that
+    project per pair never form per-Gaussian screen radii, so they return
+    none, as the reference package's do by contract (a densification
+    statistic fed from them would see every Gaussian as unseen; get_loss
+    routes a statistics harvest to the generic render)."""
+    return torch.zeros(ps.counts.shape, dtype=torch.int32, device=ps.counts.device)
 
 
 def render_rgbd_sil(cam: Camera, means3d, rgb_colors, unnorm_rotations, logit_opacities,
-                    log_scales, active, pair_structure: PairStructure | None = None
-                    ) -> RenderOutput:
+                    log_scales, active, pair_structure: PairStructure | None = None,
+                    means2d_dummy=None) -> RenderOutput:
     """Generic differentiable render: project (plain PyTorch, so autograd
     carries the gradients to every input), bin under no_grad, composite
     with K1 forward and K2 -> K3 backward (composite.CompositeGauss).
@@ -92,7 +102,14 @@ def render_rgbd_sil(cam: Camera, means3d, rgb_colors, unnorm_rotations, logit_op
     means3d are in the frame cam.w2c maps from. `pair_structure` reuses an
     earlier binning; per-pair alpha still comes from this call's
     projection, and Gaussians inactive since the structure was built
-    composite with opacity 0 (so every pair keeps its list position)."""
+    composite with opacity 0 (so every pair keeps its list position).
+
+    means2d_dummy [N, 2] (zeros that require grad) is added to the projected
+    centres scaled by [W/2, H/2], so its gradient is K3's per-Gaussian sum
+    of K2's xy gradients in the reference's NDC half-extents: the 3DGS
+    densification statistic (splatam_tpu/render/api.py:313-319;
+    utils/slam_external.py:100-104). radii come from this call's
+    projection."""
     proj, aux = project_gaussians(cam, means3d, unnorm_rotations, logit_opacities,
                                   log_scales, active)
     opacity = proj.opacity
@@ -103,11 +120,15 @@ def render_rgbd_sil(cam: Camera, means3d, rgb_colors, unnorm_rotations, logit_op
     else:
         ps = pair_structure
         opacity = torch.where(active, opacity, 0.0)
+    xy = proj.xy
+    if means2d_dummy is not None:
+        xy = xy + torch.stack((means2d_dummy[:, 0] * (cam.width * 0.5),
+                               means2d_dummy[:, 1] * (cam.height * 0.5)), dim=-1)
     depth = proj.depth[:, None]
     chans = torch.cat([rgb_colors, depth, depth * depth], dim=1)
-    img = composite.CompositeGauss.apply(proj.xy, proj.conic, opacity, chans, ps,
+    img = composite.CompositeGauss.apply(xy, proj.conic, opacity, chans, ps,
                                          cam.width, cam.height)
-    return _public(img, ps.n_pairs)
+    return _public(img, aux.radius, ps.n_pairs)
 
 
 def render_rgbd_sil_pairspace(cam: Camera, ps: PairStructure, q, t) -> RenderOutput:
@@ -121,13 +142,14 @@ def render_rgbd_sil_pairspace(cam: Camera, ps: PairStructure, q, t) -> RenderOut
         rows = pairspace.project_pairs(ps.world16, q, t, cam.fx, cam.fy, cam.cx, cam.cy,
                                        cam.width, cam.height)
         img = composite.CompositePairs.apply(rows, ps.tile_start, cam.width, cam.height)
-    return _public(img, ps.n_pairs)
+    return _public(img, _no_radii(ps), ps.n_pairs)
 
 
 def render_rgbd_sil_mapping_fused(cam: Camera, ps: PairStructure, means3d, rgb_colors,
                                   logit_opacities, log_scales, active, q, t) -> RenderOutput:
     """Mapping render (isotropic map): gradients flow to every Gaussian
-    parameter through K5 and K3; the pose is a constant."""
+    parameter through K5 and K3; the pose is a constant. Its radii are all
+    zero (see _no_radii)."""
     img = fused_iso.composite_fused_gauss(
         means3d, logit_opacities, log_scales, rgb_colors, active, ps, cam, q, t)
-    return _public(img, ps.n_pairs)
+    return _public(img, _no_radii(ps), ps.n_pairs)

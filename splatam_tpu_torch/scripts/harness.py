@@ -11,6 +11,7 @@ from typing import NamedTuple
 import torch
 
 from splatam_tpu_torch.render import composite, fused_iso, probes
+from splatam_tpu_torch.utils.device import require_device
 
 # Every hand-written kernel of the port, by the name chip_smoke.py reports.
 KERNELS = ("composite_forward", "composite_backward", "fused_forward", "fused_backward",
@@ -51,12 +52,11 @@ def parser(doc: str) -> argparse.ArgumentParser:
 def resolve_device(name: str, prog: str) -> torch.device:
     """The device the caller asked for; exits 2 when that is a GPU and there
     is none (no fallback to the CPU)."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print(f"{prog}: no CUDA device; pass --device cpu to run the plain versions on the "
-              "CPU", file=sys.stderr)
+    try:
+        return require_device(name, prog)
+    except RuntimeError as err:
+        print(err, file=sys.stderr)
         sys.exit(2)
-    return device
 
 
 def describe(device: torch.device) -> str:

@@ -32,9 +32,10 @@ from splatam_tpu_torch.core.transforms import matrix_to_quaternion
 from splatam_tpu_torch.data import frame_to_tensors, make_datasets
 from splatam_tpu_torch.eval.evaluate import eval_sequence, report_progress
 from splatam_tpu_torch.io.params_io import save_params, save_params_ckpt
-from splatam_tpu_torch.slam import steps
+from splatam_tpu_torch.slam import optim, steps, steps_gs
 from splatam_tpu_torch.slam.config import backfill_defaults
 from splatam_tpu_torch.slam.keyframes import keyframe_selection_overlap
+from splatam_tpu_torch.utils.device import require_device
 
 
 def _phase_cfg(section: dict) -> steps.PhaseConfig:
@@ -135,8 +136,6 @@ def _unported(config: dict) -> None:
     checks = [
         (int(config["tpu"].get("spatial_shards", 0)) > 1,
          "row-sharded rendering is not ported yet (ROADMAP, module list item 1.11)"),
-        (config["mapping"].get("use_gaussian_splatting_densification", False),
-         "3DGS densification is not ported yet (ROADMAP, module list item 1.8)"),
         (bool(config["tracking"].get("visualize_tracking_loss", False)),
          "tracking.visualize_tracking_loss (the per-frame GT/render panel) is not ported yet "
          "(ROADMAP, module list item 1.10)"),
@@ -155,10 +154,7 @@ class SLAMRuntime:
     def __init__(self, config: dict, device="cuda"):
         self.config = config = backfill_defaults(config)
         _unported(config)
-        self.device = device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("SLAMRuntime: no CUDA device; pass device='cpu' to run the "
-                               "kernels' plain versions on the CPU")
+        self.device = device = require_device(device, "SLAMRuntime")
         self.output_dir = os.path.join(config["workdir"], config["run_name"])
         self.eval_dir = os.path.join(self.output_dir, "eval")
         os.makedirs(self.eval_dir, exist_ok=True)
@@ -214,6 +210,9 @@ class SLAMRuntime:
         self.gt_w2c_all = []
         self.iters_run = 0  # the last tracking phase's iterations
         self.tracking_hist = self.mapping_hist = None  # numpy [iters, 3] when recorded
+        # One record per in-loop 3DGS pass (mapping.use_gaussian_splatting_
+        # densification): frame, iteration, cloned, split, active after it.
+        self.gs_passes = []
 
     def compact(self) -> None:
         """Re-pack active Gaussians into a dense prefix, unless the holes
@@ -224,11 +223,9 @@ class SLAMRuntime:
             return
         self.gm, self.timestep = G.compact(self.gm, self.timestep)
 
-    def _grow(self, new_capacity: int) -> None:
-        self.gm = G.grow_capacity(self.gm, new_capacity)
-        pad = new_capacity - self.timestep.shape[0]
-        self.timestep = torch.cat([self.timestep, self.timestep.new_zeros(pad)])
-        print(f"[splatam-torch] grew gaussian capacity to {new_capacity}")
+    def _report_growth(self, old_capacity: int) -> None:
+        if self.gm.capacity > old_capacity:
+            print(f"[splatam-torch] grew gaussian capacity to {self.gm.capacity}")
 
     def _grow_kf_store(self, extra: int = 8) -> None:
         """Grow the device keyframe store. The initial capacity
@@ -377,17 +374,11 @@ class SLAMRuntime:
     def densify_frame(self, time_idx: int, d_color, d_depth) -> None:
         q = torch.as_tensor(self.cam_rots[time_idx], device=self.device)
         t = torch.as_tensor(self.cam_trans[time_idx], device=self.device)
-        while True:
-            gm2, ts2, _, n_dropped = steps.densify_step(
-                self.gm, self.timestep, d_color, d_depth, q, t, time_idx, self.densify_cam,
-                float(self.config["mapping"]["sil_thres"]))
-            if n_dropped == 0:
-                break
-            new_cap = self.gm.capacity
-            while new_cap < self.gm.capacity + n_dropped:
-                new_cap *= 2
-            self._grow(new_cap)
-        self.gm, self.timestep = gm2, ts2
+        cap = self.gm.capacity
+        self.gm, self.timestep = steps.densify_growing(
+            self.gm, self.timestep, d_color, d_depth, q, t, time_idx, self.densify_cam,
+            float(self.config["mapping"]["sil_thres"]))
+        self._report_growth(cap)
 
     def select_keyframes(self, time_idx: int, depth_np: np.ndarray) -> list:
         """The reference's selected_keyframes list (keyframe indices, -1 =
@@ -439,18 +430,79 @@ class SLAMRuntime:
         lrs_d = cfg_m["lrs"]
         lrs = tuple(float(lrs_d[k]) for k in (
             "means3D", "rgb_colors", "unnorm_rotations", "logit_opacities", "log_scales"))
+        if cfg_m.get("use_gaussian_splatting_densification", False):
+            self._map_frame_3dgs(time_idx, selected, num_iters, lrs)
+            return
+        view, _, _, hist = self._mapping_chunk(time_idx, selected, num_iters, lrs,
+                                               G.slice_prefix(self.gm, self.gm.span()))
+        self.gm = G.write_prefix(self.gm, view)
+        if hist is not None:
+            self.mapping_hist = hist.cpu().numpy()
+
+    def _mapping_chunk(self, time_idx: int, selected: list, num_iters: int, lrs: tuple, view,
+                       opt_state=None, gsvars=None, start_iter: int = 0,
+                       track_stats: bool = False):
+        """mapping_phase on the view for num_iters iterations, with this
+        chunk's keyframe draws (and, at rebin_every > 1, its structures)."""
         slots, qs, ts, struct_qs, struct_ts, iter_idx = self._mapping_inputs(
             time_idx, selected, num_iters)
         if self.rebin_every <= 1:  # every iteration bins anew
             struct_qs = struct_ts = iter_idx = None
-        view = G.slice_prefix(self.gm, self.gm.span())
-        view, hist = steps.mapping_phase(
+        return steps.mapping_phase(
             view, self.kf_colors, self.kf_depths, slots, qs, ts, self.scene_radius,
             self.cam, num_iters, self.pcfg_map, self.prune_cfg, lrs, struct_qs, struct_ts,
-            iter_idx, record_hist=self.record_hist)
+            iter_idx, record_hist=self.record_hist, opt_state=opt_state, gsvars=gsvars,
+            start_iter=start_iter, track_stats=track_stats)
+
+    def _map_frame_3dgs(self, time_idx: int, selected: list, num_iters: int, lrs: tuple):
+        """Mapping with 3DGS clone/split between chunks (splatam_tpu/slam/
+        pipeline.py:1405-1498; reference scripts/splatam.py:862-867): chunks
+        of densify_every iterations on the active span, each with its own
+        keyframe draws, carrying the Adam state and the statistics; after a
+        chunk that ends on the densify schedule, a pass at full capacity
+        (grown first if the clones and splits would not all find a free
+        slot: steps_gs.densify_pass), then compact_with, and the next chunk
+        runs on the new span. Split noise comes from a generator seeded
+        seed * 9973 + time_idx."""
+        dcfg = steps_gs.DensifyConfig.from_dict(self.config["mapping"]["densify_dict"])
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(self.config["seed"]) * 9973 + time_idx)
+        view = G.slice_prefix(self.gm, self.gm.span())
+        opt_state = gsvars = None
+        it, hists = 0, []
+        while it < num_iters:
+            n = min(dcfg.densify_every, num_iters - it)
+            view, opt_state, gsvars, hist = self._mapping_chunk(
+                time_idx, selected, n, lrs, view, opt_state, gsvars, it, track_stats=True)
+            hists.append(hist)
+            it += n
+            if not dcfg.due(it):
+                continue
+            self.gm = G.write_prefix(self.gm, view)
+            full_gsv, full_opt = steps_gs.pad_state(steps_gs.GSVariables(*gsvars), opt_state,
+                                                    self.gm.capacity)
+            cap = self.gm.capacity
+            self.gm, self.timestep, full_gsv, full_opt, n_clone, n_split = (
+                steps_gs.densify_pass(self.gm, self.timestep, full_gsv, full_opt,
+                                      self.scene_radius, gen, it, dcfg,
+                                      final=it == dcfg.stop_after))
+            self._report_growth(cap)
+            # Re-prefix (pruning can punch holes that splits only partly
+            # refill), the moments and statistics through the same order.
+            self.gm, self.timestep, (m, v, gsv) = G.compact_with(
+                self.gm, self.timestep, (full_opt.m, full_opt.v, tuple(full_gsv)))
+            span = self.gm.span()
+            view = G.slice_prefix(self.gm, span)
+            opt_state = optim.AdamState(m=tuple(x[:span] for x in m),
+                                        v=tuple(x[:span] for x in v), step=full_opt.step)
+            gsvars = tuple(x[:span] for x in gsv)
+            self.gs_passes.append(dict(frame=time_idx, iteration=it, cloned=n_clone,
+                                       split=n_split, active=span))
+            print(f"[splatam-torch] frame {time_idx} 3DGS densify at iteration {it}: cloned "
+                  f"{n_clone}, split {n_split}, {span} Gaussians active", flush=True)
         self.gm = G.write_prefix(self.gm, view)
-        if hist is not None:
-            self.mapping_hist = hist.cpu().numpy()
+        if hists[0] is not None:
+            self.mapping_hist = torch.cat(hists).cpu().numpy()
 
     def export_params(self) -> dict:
         """The reference-schema params dict for saving and eval

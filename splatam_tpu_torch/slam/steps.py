@@ -16,7 +16,7 @@ from typing import NamedTuple
 import torch
 
 from splatam_tpu_torch.core.camera import Camera
-from splatam_tpu_torch.core.gaussians import GaussianMap
+from splatam_tpu_torch.core.gaussians import GaussianMap, grow_with_timestep
 from splatam_tpu_torch.core.losses import calc_ssim
 from splatam_tpu_torch.core.transforms import build_rotation, normalize, quat_mult
 from splatam_tpu_torch.render import api, pairspace
@@ -43,6 +43,7 @@ class LossAux(NamedTuple):
     weighted_im_loss: torch.Tensor
     silhouette: torch.Tensor
     render_depth: torch.Tensor
+    radii: torch.Tensor  # [N] int32 screen radii of the render (all 0 off the generic render)
 
 
 def transform_to_frame(gm: GaussianMap, q, t, gaussians_grad: bool, camera_grad: bool):
@@ -68,17 +69,22 @@ def _median_lower(x: torch.Tensor) -> torch.Tensor:
 
 
 def get_loss(gm: GaussianMap, q, t, color, depth_gt, cam: Camera, pcfg: PhaseConfig,
-             tracking: bool, mapping: bool, pair_structure: api.PairStructure | None = None):
+             tracking: bool, mapping: bool, pair_structure: api.PairStructure | None = None,
+             means2d_dummy=None):
     """Reference get_loss, routed as the JAX package routes it: tracking
     with a world-8/16 structure renders in pair space (gradients to the
-    pose), mapping an isotropic map with a structure takes the fused
-    mapping render, and everything else the generic render of
-    transform_to_frame's camera-frame Gaussians, with the phase-gated
-    detaches (tracking: camera only; otherwise the Gaussians only)."""
+    pose), mapping an isotropic map with a structure and no means2d_dummy
+    takes the fused mapping render, and everything else the generic render
+    of transform_to_frame's camera-frame Gaussians, with the phase-gated
+    detaches (tracking: camera only; otherwise the Gaussians only).
+    means2d_dummy (the 3DGS statistics harvest, api.render_rgbd_sil) keeps
+    mapping on the generic render: the fused render's world-space backward
+    forms no per-Gaussian screen gradient and its radii are all zero
+    (splatam_tpu/slam/steps.py:140-150)."""
     ps = pair_structure
     if tracking and ps is not None and (ps.world8 is not None or ps.world16 is not None):
         out = api.render_rgbd_sil_pairspace(cam, ps, q, t)
-    elif mapping and ps is not None and gm.isotropic:
+    elif mapping and ps is not None and gm.isotropic and means2d_dummy is None:
         out = api.render_rgbd_sil_mapping_fused(
             cam, ps, gm.means3d, gm.rgb_colors, gm.logit_opacities,
             gm.log_scales, gm.active, q, t)
@@ -88,7 +94,7 @@ def get_loss(gm: GaussianMap, q, t, color, depth_gt, cam: Camera, pcfg: PhaseCon
         keep = (lambda x: x) if params_grad else (lambda x: x.detach())
         out = api.render_rgbd_sil(cam, means_cam, keep(gm.rgb_colors), rots_cam,
                                   keep(gm.logit_opacities), keep(gm.log_scales), gm.active,
-                                  pair_structure=ps)
+                                  pair_structure=ps, means2d_dummy=means2d_dummy)
 
     depth = out.depth
     silhouette = out.silhouette
@@ -128,7 +134,8 @@ def get_loss(gm: GaussianMap, q, t, color, depth_gt, cam: Camera, pcfg: PhaseCon
 
     w_depth = pcfg.w_depth * depth_loss
     w_im = pcfg.w_im * im_loss
-    aux = LossAux(w_depth.detach(), w_im.detach(), silhouette.detach(), depth.detach())
+    aux = LossAux(w_depth.detach(), w_im.detach(), silhouette.detach(), depth.detach(),
+                  out.radii)
     return w_depth + w_im, aux
 
 
@@ -251,7 +258,8 @@ MAP_PARAMS = ("means3d", "rgb_colors", "unnorm_rotations", "logit_opacities", "l
 def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs, iter_ts,
                   scene_radius: float, cam: Camera, num_iters: int, pcfg: PhaseConfig,
                   prune_cfg: PruneConfig, lrs: tuple, struct_qs=None, struct_ts=None,
-                  iter_struct_idx=None, record_hist: bool = False):
+                  iter_struct_idx=None, record_hist: bool = False, opt_state=None,
+                  gsvars=None, start_iter: int = 0, track_stats: bool = False):
     """Mapping iterations for one frame over keyframes drawn by the host.
 
     iter_slots: per-iteration keyframe-store slot. With a distinct-keyframe
@@ -260,12 +268,24 @@ def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs,
     built once up front from the phase-start parameters and reused by its
     iterations; without one, every iteration bins anew. lrs follows the
     reference's order (MAP_PARAMS); an isotropic map's rotations never
-    enter a render, so they take no step and stay as they are. Pruning
-    happens before each optimizer step (utils/slam_external.py:167-188).
+    enter a render, so they take no step, stay as they are and carry no
+    Adam moments. Pruning happens before each optimizer step
+    (utils/slam_external.py:167-188).
 
-    Returns (map, hist): with record_hist, hist is a device tensor
-    [num_iters, 3] of (loss, weighted depth loss, weighted im loss) per
-    iteration (as tracking_phase's); else None."""
+    Resumable (splatam_tpu/slam/steps.py:539-720), so a caller can run the
+    phase in chunks with 3DGS clone/split between them: opt_state (Adam over
+    the parameters that step, in MAP_PARAMS order; fresh when None) and
+    gsvars (means2d_grad_accum, denom, max_2d_radius, [N] each; zeros when
+    None and track_stats) come in and go out, and the prune and opacity-reset schedules count the
+    absolute iteration start_iter + i. With track_stats each iteration
+    harvests the screen-space gradient through a means2d_dummy (which keeps
+    the generic render, see get_loss): where radii > 0 it adds the
+    gradient's norm to means2d_grad_accum and one to denom, and keeps the
+    running max of the radii.
+
+    Returns (map, opt_state, gsvars, hist): with record_hist, hist is a
+    device tensor [num_iters, 3] of (loss, weighted depth loss, weighted im
+    loss) per iteration (as tracking_phase's); else None."""
     gm = GaussianMap(*(a.detach() for a in gm))
     structs = None
     if struct_qs is not None:
@@ -273,28 +293,40 @@ def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs,
     keys = tuple(k for k in MAP_PARAMS if not (gm.isotropic and k == "unnorm_rotations"))
     plrs = tuple(lrs[MAP_PARAMS.index(k)] for k in keys)
     params = {k: getattr(gm, k) for k in keys}
-    st = optim.adam_init(tuple(params.values()))
+    st = optim.adam_init(tuple(params.values())) if opt_state is None else opt_state
     active = gm.active
-    hist = torch.zeros((num_iters, 3), device=active.device) if record_hist else None
+    dev = active.device
+    if track_stats and gsvars is None:
+        zeros = torch.zeros((gm.capacity,), dtype=torch.float32, device=dev)
+        gsvars = (zeros, zeros, zeros)
+    hist = torch.zeros((num_iters, 3), device=dev) if record_hist else None
     for i in range(num_iters):
+        it = start_iter + i
         slot = int(iter_slots[i])
         color = kf_colors_u8[slot].to(torch.float32).permute(2, 0, 1) / 255.0
         depth_gt = kf_depths[slot]
         p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         gm_i = gm._replace(**p, active=active)
         ps = None if structs is None else structs[int(iter_struct_idx[i])]
+        dummy = (torch.zeros((gm.capacity, 2), device=dev, requires_grad=True)
+                 if track_stats else None)
         loss, aux = get_loss(gm_i, iter_qs[i], iter_ts[i], color, depth_gt, cam, pcfg,
-                             False, True, ps)
-        grads = torch.autograd.grad(loss, tuple(p.values()))
+                             False, True, ps, means2d_dummy=dummy)
+        wrt = tuple(p.values()) + ((dummy,) if track_stats else ())
+        grads = torch.autograd.grad(loss, wrt)
+        if track_stats:
+            # 3DGS densification statistics (utils/slam_external.py:100-104).
+            grads, d_dummy = grads[:-1], grads[-1]
+            gsvars = accumulate_stats(gsvars, d_dummy, aux.radii)
         if hist is not None:
             hist[i] = torch.stack([loss.detach(), aux.weighted_depth_loss,
                                    aux.weighted_im_loss])
         if prune_cfg.enabled:
-            active = _prune_mask(params["logit_opacities"], params["log_scales"], active, i,
+            active = _prune_mask(params["logit_opacities"], params["log_scales"], active, it,
                                  scene_radius, prune_cfg)
-            if (prune_cfg.reset_opacities and i > 0
-                    and i % prune_cfg.reset_opacities_every == 0
-                    and i <= prune_cfg.stop_after):
+            if (prune_cfg.reset_opacities and it > 0
+                    and it % prune_cfg.reset_opacities_every == 0
+                    and it <= prune_cfg.stop_after):
                 inv_sig = torch.log(torch.tensor(0.01 / 0.99))
                 params["logit_opacities"] = torch.full_like(params["logit_opacities"],
                                                             float(inv_sig))
@@ -303,7 +335,18 @@ def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs,
                                      step=st.step)
         new, st = optim.adam_step(st, tuple(params.values()), grads, plrs, eps=1e-15)
         params = dict(zip(keys, new))
-    return gm._replace(**params, active=active), hist
+    return gm._replace(**params, active=active), st, gsvars, hist
+
+
+def accumulate_stats(gsvars: tuple, d_dummy, radii) -> tuple:
+    """One iteration's 3DGS statistics (splatam_tpu/slam/steps.py:669-678):
+    where radii > 0, add |d means2d_dummy| to the gradient accumulator and 1
+    to denom, and keep the running max of the radii."""
+    accum, denom, max_rad = gsvars
+    seen = radii > 0
+    return (accum + torch.where(seen, torch.linalg.vector_norm(d_dummy, dim=-1), 0.0),
+            denom + seen.to(torch.float32),
+            torch.maximum(max_rad, torch.where(seen, radii.to(torch.float32), 0.0)))
 
 
 # ---------------------------------------------------------------------------
@@ -369,6 +412,22 @@ def densify_step(gm: GaussianMap, timestep, color, depth_gt, q, t, time_idx: int
     timestep = timestep.clone()
     timestep[dest] = float(time_idx)
     return GaussianMap(means3d, rgb, rots, logit, log_scales, active), timestep, n_cand, 0
+
+
+def densify_growing(gm: GaussianMap, timestep, color, depth_gt, q, t, time_idx: int,
+                    cam: Camera, sil_thres: float):
+    """densify_step, the capacity doubled (grow_with_timestep) and the step
+    retried until every candidate finds a free slot. Returns (gm,
+    timestep)."""
+    while True:
+        gm2, ts2, _, n_dropped = densify_step(gm, timestep, color, depth_gt, q, t, time_idx,
+                                              cam, sil_thres)
+        if n_dropped == 0:
+            return gm2, ts2
+        cap = gm.capacity
+        while cap < gm.capacity + n_dropped:
+            cap *= 2
+        gm, timestep = grow_with_timestep(gm, timestep, cap)
 
 
 @torch.no_grad()
