@@ -108,7 +108,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
      them (paths 8 and 9: params.npz at its 600x340 mapping camera and last
      pose; path 10: the final map at its last pose, with K4, K5 and K3-8
      too) against their plain versions as in phase 5 (K1 bit for bit) and
-     twice each where the sums have a fixed order.
+     twice each where the sums have a fixed order;
+ 14. path 11, the generic render of any channels (render_gaussians,
+     backend "auto") on path 1's final map at its last pose, 1200x680,
+     forward and backward with a seeded cotangent on every output row:
+     colours [N, 3] (kernel ch 3, the reference's RGB pass), [z, 1, z^2]
+     as colours (ch 3, its depth/silhouette pass), [N, 1] (ch 1), [N, 8]
+     with depth appended (ch 10), [N, 3] with depth (ch 5, equal to
+     render_rgbd_sil bit for bit) and [N, c] for c = 2, 4, 6, 7, 8, 9;
+     each case launches K1 and K2 at its channel count and K3 at 6 + that
+     count once each and nothing else. Then on each case's inputs K1 (bit
+     for bit), K2 and K3 against their plain versions, K2 and K3 twice,
+     and each width instance's time, plain time, bound and (K3)
+     index_add_'s time; then at 160x120 on an anisotropic map of 2,000
+     Gaussians the kernels against the naive and tiles backends on the
+     card (ch 3 and 10: images within 1e-4, gradients within 5e-5 of their
+     largest);
+ 15. path 12, the viewers: `python -m splatam_tpu_torch.scripts.final_recon`
+     and `...online_recon` in processes of their own on path 4's run
+     directory (configs/synthetic/splatam.py's viz section, 600x340): 24
+     orbit views through 24 K1 launches, one replay frame per frame, and
+     view 0 decoded with read_png equal to render_view's uint8 here.
 A device-busy time (phases 6, 7, 10) counts only where torch.profiler
 recorded every launch of the port's kernels that the wrappers counted in
 its window; elsewhere it prints as unverified.
@@ -116,7 +136,8 @@ Each path's launch counts (and those of phase 9's probe run, of path
 4's eval and resume, and of path 5's NVS eval) are set to 0 just before it
 (or start at 0 in a process of its own) and read just after; the kernels the path must launch have
 to be > 0 from frame 1 on, the fused kernels must stay at 0 on paths 2 and
-3 (the routing), and the probe kernels at 0 on paths 1-3.
+3 (the routing), the probe kernels at 0 on paths 1-3, and K1, K2 and K3
+at any width but the SLAM loop's at 0 on every path but path 11.
 Prints the kernel table as one JSON line, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -186,6 +207,26 @@ KERNELS = {
     "dma_b4": ("scripts/probe_dma.py:173", "splatam_tpu_torch/csrc/fused_probes.cu"),
     "math_only": ("scripts/probe_dma.py:290", "splatam_tpu_torch/csrc/fused_probes.cu"),
 }
+# K1 and K2 at every other channel count (1-10, as the TPU kernels take: the
+# SLAM loop's five are the rows above), K3 at every other width of the
+# generic render's rows (6 + ch): splatam_tpu_torch/scripts/harness.py WIDE.
+CHANNELS = range(1, 11)
+K1_WIDE = tuple(f"composite_forward_ch{c}" for c in CHANNELS if c != 5)
+K2_WIDE = tuple(f"composite_backward_ch{c}" for c in CHANNELS if c != 5)
+K3_WIDE = tuple(f"segment_reduce{k}" for k in range(7, 17) if k not in (8, 11))
+WIDE = K1_WIDE + K2_WIDE + K3_WIDE
+for _name in WIDE:
+    KERNELS[_name] = KERNELS[_name.partition("_ch")[0] if "_ch" in _name else "segment_reduce"]
+
+
+def instance_name(kind: str, n: int) -> str:
+    """The kernel name of K1 or K2 ("composite_forward", "composite_backward")
+    at n channels, or of K3 ("segment_reduce") at n columns."""
+    if kind == "segment_reduce":
+        return {8: "segment_reduce", 11: "segment_reduce11"}.get(n, f"segment_reduce{n}")
+    return kind if n == 5 else f"{kind}_ch{n}"
+
+
 PROBES = ("fwd2", "dma_only", "dma_b2", "dma_b4", "math_only")
 PROBE_N = 1272155  # the probe scripts' default map
 PROBE_LOGITS = (-2.0, 1.0)  # probe_unroll's default (walks to the tile's end), saturating
@@ -210,17 +251,30 @@ PROFILE_N = 950272  # scripts/profile_map_ablate.py:22, about path 1's steady ma
 TOL = {"composite_forward": 1e-5, "composite_backward": 1e-4, "fused_forward": 1e-5,
        "fused_backward": 1e-4, "segment_reduce": 1e-5, "segment_reduce11": 1e-5,
        "fwd2": 1e-5, "dma_only": 1e-5, "dma_b2": 1e-5, "dma_b4": 1e-5, "math_only": 1e-5}
-IMAGES = ("composite_forward", "fused_forward", "fwd2", "math_only")  # n_contrib exact
-BIT_EQUAL_TO_PLAIN = ("composite_forward", "fused_forward")  # every row, not only n_contrib
+TOL.update({n: TOL["composite_forward"] for n in K1_WIDE})
+TOL.update({n: TOL["composite_backward"] for n in K2_WIDE})
+TOL.update({n: TOL["segment_reduce"] for n in K3_WIDE})
+IMAGES = ("composite_forward", "fused_forward", "fwd2", "math_only", *K1_WIDE)  # n_contrib exact
+BIT_EQUAL_TO_PLAIN = ("composite_forward", "fused_forward", *K1_WIDE)  # every row
 # Kernels whose sums have a fixed order: two launches must be equal bit for bit.
-DETERMINISTIC = ("composite_backward", "fused_backward", "segment_reduce", "segment_reduce11")
-# The library entries that report what the compiler gave K1, K2, K3, K4 and K5.
-KERNEL_INFO = {"composite_forward": ("composite_forward_info",),
-               "composite_backward": ("composite_backward_info",),
+DETERMINISTIC = ("composite_backward", "fused_backward", "segment_reduce", "segment_reduce11",
+                 *K2_WIDE, *K3_WIDE)
+# The library entries that report what the compiler gave K1, K2, K3, K4 and K5,
+# and K1, K2 and K3 at every width.
+KERNEL_INFO = {"composite_forward": ("composite_forward_info", 5),
+               "composite_backward": ("composite_backward_info", 5),
                "fused_forward": ("fused_forward_info",),
                "fused_backward": ("fused_backward_info",),
                "segment_reduce": ("segment_reduce_info", 8),
-               "segment_reduce11": ("segment_reduce_info", 11)}
+               "segment_reduce11": ("segment_reduce_info", 11),
+               **{instance_name(kind, n): (f"{kind}_info", n)
+                  for kind in ("composite_forward", "composite_backward") for n in CHANNELS
+                  if n != 5},
+               **{instance_name("segment_reduce", k): ("segment_reduce_info", k)
+                  for k in range(7, 17) if k not in (8, 11)}}
+# The SLAM loop's six kernels (check_trained_map's names for path 10's map).
+LOOP_KERNELS = ("composite_forward", "composite_backward", "fused_forward", "fused_backward",
+                "segment_reduce", "segment_reduce11")
 # Per path: the kernels it must launch, and those it must not.
 GENERIC = (("composite_forward", "composite_backward", "segment_reduce11"),
            ("fused_forward", "fused_backward", "segment_reduce", *PROBES))
@@ -247,7 +301,12 @@ PATH_KERNELS = {
     "probes": (("fused_forward", *PROBES),
                ("composite_forward", "composite_backward", "fused_backward", "segment_reduce",
                 "segment_reduce11")),
+    # the viewers render through K1 alone (five channels: r, g, b, z, z^2)
+    "path 12 final_recon": EVAL,
+    "path 12 online_recon": EVAL,
 }
+# No path but path 11 launches K1, K2 or K3 at another width.
+PATH_KERNELS = {k: (must, (*never, *WIDE)) for k, (must, never) in PATH_KERNELS.items()}
 
 
 def fail(msg: str) -> None:
@@ -462,20 +521,31 @@ def check_fused_modes(x, label: str) -> None:
         fail(f"K4/K5 per-Gaussian mode differs from the per-pair mode ({label})")
 
 
-def check_cases(cases, label: str, equal_to: dict | None = None) -> dict:
+def check_cases(cases, label: str, equal_to: dict | None = None,
+                plain_ms: dict | None = None) -> dict:
     """Hold each kernel to its plain version; returns max abs errors.
 
     The images' n_contrib row (an index) must match exactly: one flipped
     alpha < 1/255 or T < 1e-4 decision would also move the pixel's colour
     by a whole pair's contribution, far past the image tolerance. A kernel
-    named in `equal_to` must also equal that call's output bit for bit."""
+    named in `equal_to` must also equal that call's output bit for bit.
+    With `plain_ms`, each plain call is timed (CUDA events, ms) into it."""
     import torch
 
     errs = {}
     for name, kernel, plain in cases:
         got = kernel()
         torch.cuda.synchronize()
-        ref = plain()
+        if plain_ms is None:
+            ref = plain()
+        else:
+            ref = None
+
+            def timed(plain=plain):
+                nonlocal ref
+                ref = plain()
+
+            plain_ms[name] = event_ms(timed, 1, 0)
         ok = bool(torch.isfinite(got).all())
         extra = ""
         if equal_to and name in equal_to:
@@ -553,29 +623,34 @@ def time_turns(cases) -> dict:
 
 
 def library_k3(x) -> dict:
-    """K3 beside the one PyTorch call that computes its function,
-    torch.zeros(n, k).index_add_(0, pair_to_gauss, dpair): its sums within
-    K3's 1e-5 per column, and its time (ms) at both widths."""
+    """K3 beside the one PyTorch call that computes its function at both
+    widths of the SLAM loop (library_index_add)."""
+    return {name: library_index_add(name, dpair, s)
+            for name, dpair, s in (("segment_reduce", x.dpair, x.ps),
+                                   ("segment_reduce11", x.dgen, x.b))}
+
+
+def library_index_add(name: str, dpair, s) -> float:
+    """torch.zeros(n, k).index_add_(0, pair_to_gauss, dpair), the one
+    PyTorch call that computes K3's function: its sums within K3's 1e-5 per
+    column, and its time (ms)."""
     import torch
 
     from splatam_tpu_torch.render import composite
 
-    out = {}
-    for name, dpair, s in (("segment_reduce", x.dpair, x.ps), ("segment_reduce11", x.dgen, x.b)):
-        idx, n = s.pair_gauss.long(), s.counts.shape[0]
+    idx, n = s.pair_gauss.long(), s.counts.shape[0]
 
-        def call(dpair=dpair, idx=idx, n=n):
-            return torch.zeros((n, dpair.shape[1]), device=dpair.device).index_add_(0, idx, dpair)
+    def call():
+        return torch.zeros((n, dpair.shape[1]), device=dpair.device).index_add_(0, idx, dpair)
 
-        err, rels = rel_err(call(), composite.segment_reduce(dpair, s.dst, s.offsets, s.counts))
-        ms = min(event_ms(call, 20, 3), event_ms(call, 20, 3))
-        ok = max(rels) <= TOL[name]
-        print(f"library {name}: index_add_ {ms:.3f} ms, vs K3 max_abs_err={err:.3e} "
-              f"worst_col_rel={max(rels):.1e} {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            fail(f"index_add_ disagrees with {name}")
-        out[name] = ms
-    return out
+    err, rels = rel_err(call(), composite.segment_reduce(dpair, s.dst, s.offsets, s.counts))
+    ms = min(event_ms(call, 20, 3), event_ms(call, 20, 3))
+    ok = max(rels) <= TOL[name]
+    print(f"library {name}: index_add_ {ms:.3f} ms, vs K3 max_abs_err={err:.3e} "
+          f"worst_col_rel={max(rels):.1e} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"index_add_ disagrees with {name}")
+    return ms
 
 
 def report_cull(wc, label: str, forward: str = "K1", backward: str | None = "K2") -> None:
@@ -779,7 +854,7 @@ def report_bounds(work: dict, times: dict, label: str) -> dict:
     return out
 
 
-def small_scene(device):
+def small_scene(device, n: int = 5000, aniso: bool = False):
     import numpy as np
     import torch
 
@@ -787,7 +862,6 @@ def small_scene(device):
     from splatam_tpu_torch.core.gaussians import GaussianMap
 
     rng = np.random.default_rng(0)
-    n = 5000
     f = dict(
         means3d=np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-1, 1, n),
                           rng.uniform(1.0, 5, n)], -1).astype(np.float32),
@@ -797,6 +871,8 @@ def small_scene(device):
         log_scales=np.log(rng.uniform(0.01, 0.08, (n, 1))).astype(np.float32),
         active=rng.uniform(size=n) > 0.1,
     )
+    if aniso:
+        f["log_scales"] = np.log(rng.uniform(0.01, 0.08, (n, 3))).astype(np.float32)
     gm = GaussianMap(**{k: torch.tensor(v, device=device) for k, v in f.items()})
     q = torch.tensor([0.99, 0.02, -0.03, 0.01], device=device)
     t = torch.tensor([0.02, -0.01, 0.03], device=device)
@@ -1481,8 +1557,260 @@ def drive_gs_loop(work: str, device, card: str) -> dict:
     last = FRAMES_GS_LOOP - 1
     check_trained_map(rt.gm, torch.as_tensor(rt.cam_rots[last], device=device),
                       torch.as_tensor(rt.cam_trans[last], device=device), rt.cam,
-                      "path 10 final", names=tuple(KERNEL_INFO))
+                      "path 10 final", names=LOOP_KERNELS)
     del rt
+    return launches
+
+
+# Path 11: the generic render of any channels on path 1's final map at its
+# last pose: (label, colours, their kind, append_depth_channels). Kernel
+# channels: the colours, plus z and z^2 with depth appended.
+GENERIC_CASES = (
+    ("a rgb", 3, "rgb", False),  # ch 3: the reference's RGB pass
+    ("b [z, 1, z^2]", 3, "depth", False),  # ch 3: the reference's depth/silhouette pass
+    ("c one channel", 1, "random", False),  # ch 1
+    ("d 8 channels + depth", 8, "random", True),  # ch 10, the widest
+    ("e rgb + depth", 3, "rgb", True),  # ch 5: render_rgbd_sil's rows
+    *((f"f {c} channels", c, "random", False) for c in (2, 4, 6, 7, 8, 9)),
+)
+REFERENCE_N = 2000  # path 11's anisotropic map at 160x120 for the naive and tiles backends
+
+
+def generic_map(view, q, t, cam, device) -> SimpleNamespace:
+    """Path 11's inputs: the map in the camera's frame at the pose, its
+    projection and binning (the kernels' attributes), each case's colours."""
+    import torch
+
+    from splatam_tpu_torch.render import api, binning
+    from splatam_tpu_torch.slam import steps
+
+    with torch.no_grad():
+        means, rots = steps.transform_to_frame(view, q, t, False, False)
+        proj, aux = api.project_gaussians(cam, means, rots, view.logit_opacities,
+                                          view.log_scales, view.active)
+        b = binning.build_bins(proj, aux, cam.width, cam.height)
+    gen = torch.Generator(device).manual_seed(11)
+    z = proj.depth[:, None]
+    colors = {}
+    for label, n, kind, _ in GENERIC_CASES:
+        colors[label] = {"rgb": view.rgb_colors,
+                         "depth": torch.cat([z, torch.ones_like(z), z * z], 1),
+                         "random": None}[kind]
+        if colors[label] is None:
+            colors[label] = torch.rand((z.shape[0], n), device=device, generator=gen)
+    return SimpleNamespace(cam=cam, means=means, rots=rots, view=view, proj=proj, b=b, z=z,
+                           colors=colors, gen=gen)
+
+
+def drive_generic(m) -> tuple:
+    """Path 11's run: each case through render_gaussians, forward and the
+    backward of a seeded weighting of every output row; counts zeroed just
+    before each case and read just after, which must show one launch of K1
+    and K2 at the case's channel count and of K3 at 6 + that count, and no
+    other. Case e's rows must equal render_rgbd_sil's bit for bit. Returns
+    the counts summed over the cases."""
+    import torch
+
+    from splatam_tpu_torch.render import api
+    from splatam_tpu_torch.scripts.harness import launch_counts, reset_launch_counts
+
+    cam, v = m.cam, m.view
+    total = {}
+    for label, n, _, append in GENERIC_CASES:
+        ch, rows = (n + 2, n + 3) if append else (n, n)
+        leaves = [a.detach().clone().requires_grad_(True)
+                  for a in (m.means, m.colors[label], m.rots, v.logit_opacities, v.log_scales)]
+        w = torch.randn((rows, cam.height, cam.width), device=m.z.device, generator=m.gen)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.time()
+        img, radii, n_pairs = api.render_gaussians(cam, *leaves, v.active,
+                                                   append_depth_channels=append)
+        grads = torch.autograd.grad((img * w).sum(), leaves)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        launches = launch_counts()
+        for k, c in launches.items():
+            total[k] = total.get(k, 0) + c
+        moved = {k: c for k, c in launches.items() if c}
+        want = {instance_name("composite_forward", ch): 1,
+                instance_name("composite_backward", ch): 1,
+                instance_name("segment_reduce", 6 + ch): 1}
+        finite = bool(torch.isfinite(img).all()) and all(bool(torch.isfinite(g).all())
+                                                         for g in grads)
+        print(f"path 11 {label}: kernel ch {ch}, image {tuple(img.shape)}, {n_pairs} pairs, "
+              f"fwd+bwd {ms:.1f} ms wall, launches {moved}, finite={finite}", flush=True)
+        if moved != want:
+            fail(f"path 11 {label}: launches {moved}, expected {want}")
+        if img.shape != (rows, cam.height, cam.width) or not finite:
+            fail(f"path 11 {label}: image {tuple(img.shape)}, finite={finite}")
+        if label.startswith("e "):
+            with torch.no_grad():
+                out = api.render_rgbd_sil(cam, m.means, v.rgb_colors, m.rots, v.logit_opacities,
+                                          v.log_scales, v.active)
+            same = torch.equal(img.detach(), torch.cat([out.im, out.depth[None],
+                                                        out.silhouette[None],
+                                                        out.depth_sq[None]]))
+            print(f"path 11 {label}: equal to render_rgbd_sil bit for bit={same}", flush=True)
+            if not same:
+                fail("path 11: render_gaussians at ch 5 differs from render_rgbd_sil")
+    return total
+
+
+def check_generic_kernels(m, label: str) -> tuple:
+    """K1, K2 and K3 on each path 11 case's own inputs against their plain
+    versions (K1 bit for bit), K2 and K3 twice; then, once per width
+    instance beside the SLAM loop's, its time (CUDA events over 20
+    launches, the smaller of two turns), its plain version's (one call),
+    its bound and, for K3, index_add_'s. Returns (errors, times, bounds,
+    library ms) keyed by kernel name."""
+    import torch
+
+    from splatam_tpu_torch.render import bounds as B
+    from splatam_tpu_torch.render import composite
+
+    cam, b = m.cam, m.b
+    w, h = cam.width, cam.height
+    a = torch.cat([m.proj.xy, m.proj.conic, m.proj.opacity[:, None]], 1)[b.pair_gauss.long()]
+    wc = B.walk_counts(a[:, 0:2], a[:, 2:5], a[:, 5], b.tile_start, w, h,
+                       warp_w=composite.WARP_W)
+    del a
+    print(f"walk counts: path 11 {wc}", flush=True)
+    errs, times, bounds, library = {}, {}, {}, {}
+    for case, n, _, append in GENERIC_CASES:
+        ch = n + 2 if append else n
+        chans = torch.cat([m.colors[case], m.z, m.z * m.z], 1) if append else m.colors[case]
+        attrs = torch.cat([m.proj.xy, m.proj.conic, m.proj.opacity[:, None], chans],
+                          1).contiguous()
+        state = composite.composite_forward(attrs, b.pair_gauss, b.tile_start, w, h)
+        g = torch.randn((ch + 1, h, w), device=attrs.device, generator=m.gen)
+        dgen = composite.composite_backward(attrs, b.pair_gauss, b.tile_start, w, h, state, g)
+        names = (instance_name("composite_forward", ch), instance_name("composite_backward", ch),
+                 instance_name("segment_reduce", 6 + ch))
+        ts, pg = b.tile_start, b.pair_gauss
+        cases = [
+            (names[0], lambda: composite.composite_forward(attrs, pg, ts, w, h),
+             lambda: composite.composite_forward_plain(attrs, pg, ts, w, h)),
+            (names[1], lambda: composite.composite_backward(attrs, pg, ts, w, h, state, g),
+             lambda: composite.composite_backward_plain(attrs, pg, ts, w, h, state, g)),
+            (names[2], lambda: composite.segment_reduce(dgen, b.dst, b.offsets, b.counts),
+             lambda: composite.segment_reduce_plain(dgen, b.dst, b.offsets, b.counts)),
+        ]
+        plain = {}
+        case_label = f"{label}, case {case}, ch {ch}"
+        case_errs = check_cases(cases, case_label, plain_ms=plain)
+        check_repeat(cases, case_label)
+        for name, kernel, _ in cases:
+            if name not in WIDE or name in times:
+                continue
+            errs[name] = case_errs[name]
+            ms = min(event_ms(kernel, 20, 3), event_ms(kernel, 20, 3))
+            times[name] = (ms, plain[name])
+            print(f"time {name}: kernel {ms:.3f} ms, plain {plain[name]:.3f} ms", flush=True)
+        work = {
+            names[0]: (B.nbytes(attrs, pg, ts, state), B.forward_walk_ops(wc, ch)),
+            names[1]: (B.nbytes(attrs, pg, ts, g, dgen) + B.image_rows_bytes(state, 2),
+                       B.backward_walk_ops(wc, ch)),
+            names[2]: (B.nbytes(dgen, b.dst, b.offsets, b.counts)
+                       + b.counts.numel() * dgen.shape[1] * 4, dgen.numel()),
+        }
+        new = {k: v for k, v in work.items() if k in times and k not in bounds}
+        bounds.update(report_bounds(new, times, case_label))
+        if names[2] in new:
+            library[names[2]] = library_index_add(names[2], dgen, b)
+        del attrs, state, g, dgen, cases
+    return errs, times, bounds, library
+
+
+def check_references(device) -> None:
+    """render_gaussians through the kernels against its naive and tiles
+    backends on the card, at 160x120 on an anisotropic map of REFERENCE_N
+    Gaussians, at kernel ch 3 (three colours) and 10 (eight colours and
+    depth): images within 1e-4, each gradient within 5e-5 of its largest
+    magnitude (the JAX suite's tolerances for its backends)."""
+    import numpy as np
+    import torch
+
+    from splatam_tpu_torch.render import api
+    from splatam_tpu_torch.slam import steps
+
+    gm, q, t, cam = small_scene(device, n=REFERENCE_N, aniso=True)
+    with torch.no_grad():
+        means, rots = steps.transform_to_frame(gm, q, t, False, False)
+    gen = torch.Generator(device).manual_seed(12)
+    for n, append in ((3, False), (8, True)):
+        colors = torch.rand((gm.capacity, n), device=device, generator=gen)
+        rows = n + 3 if append else n
+        w = torch.randn((rows, cam.height, cam.width), device=device, generator=gen)
+        out = {}
+        for backend in ("auto", "naive", "tiles"):
+            leaves = [a.detach().clone().requires_grad_(True)
+                      for a in (means, colors, rots, gm.logit_opacities, gm.log_scales)]
+            torch.cuda.synchronize()
+            t0 = time.time()
+            img, _, _ = api.render_gaussians(cam, *leaves, gm.active, backend=backend,
+                                             append_depth_channels=append)
+            grads = torch.autograd.grad((img * w).sum(), leaves)
+            torch.cuda.synchronize()
+            out[backend] = (img.detach(), grads, time.time() - t0)
+        img_a, grads_a, _ = out["auto"]
+        for backend in ("naive", "tiles"):
+            img, grads, secs = out[backend]
+            img_err = float((img - img_a).abs().max())
+            grad_rel = [float((g - r).abs().max() / r.abs().max().clamp_min(1e-30))
+                        for g, r in zip(grads, grads_a)]
+            ok = img_err <= 1e-4 and max(grad_rel) <= 5e-5
+            print(f"path 11 references, 160x120, {REFERENCE_N} Gaussians, ch "
+                  f"{n + 2 if append else n}: {backend} ({secs:.1f} s fwd+bwd) vs the kernels: "
+                  f"image {img_err:.2e} (tol 1e-4), gradients "
+                  f"{', '.join(f'{r:.1e}' for r in grad_rel)} of their largest (tol 5e-5) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok or not np.isfinite(grad_rel).all():
+                fail(f"path 11: the kernels disagree with the {backend} backend")
+
+
+def drive_viewers(work: str, device) -> dict:
+    """Path 12: final_recon and online_recon as `python -m` in processes of
+    their own on path 4's run directory (its experiment file: the viz
+    section of configs/synthetic/splatam.py, 600x340): 24 orbit views
+    through 24 K1 launches, one replay frame per frame; one view decoded
+    with read_png equal to render_view's uint8 in this process. Returns
+    their launch counts."""
+    import numpy as np
+
+    from splatam_tpu_torch.data.png import read_png
+    from splatam_tpu_torch.scripts.final_recon import N_VIEWS, orbit_w2c, to_uint8
+    from splatam_tpu_torch.slam.config import load_experiment_config
+    from splatam_tpu_torch.viz import scene
+
+    exp = os.path.join(work, "path4_experiment.py")
+    params = os.path.join(work, "path4", "params.npz")
+    launches = {}
+    launches["path 12 final_recon"], views = run_cli(
+        work, "splatam_tpu_torch.scripts.final_recon", exp, "path 12 final_recon")
+    launches["path 12 online_recon"], frames = run_cli(
+        work, "splatam_tpu_torch.scripts.online_recon", exp, "path 12 online_recon")
+    k1 = (launches["path 12 final_recon"]["composite_forward"],
+          launches["path 12 online_recon"]["composite_forward"])
+    replays = [os.path.join(work, "path4", "online_replay", f"replay_{t:04d}.png")
+               for t in frames]
+    written = all(os.path.exists(f) for f in [*views, *replays])
+    print(f"path 12: final_recon wrote {len(views)} views with {k1[0]} K1 launches, "
+          f"online_recon {len(frames)} replay frames with {k1[1]} K1 launches; every PNG "
+          f"written={written}", flush=True)
+    if len(views) != N_VIEWS or k1 != (N_VIEWS, FRAMES_SLAM) or frames != list(
+            range(FRAMES_SLAM)) or not written:
+        fail(f"path 12: {len(views)} views, frames {frames}, K1 launches {k1}")
+    viz = load_experiment_config(exp)["viz"]
+    gm, w2cs, _ = scene.load_scene_data(params, device)
+    _, k = scene.load_camera(viz, params)
+    im, _, _ = scene.render_view(gm, orbit_w2c(w2cs[-1], 0), k, viz)
+    got = read_png(views[0])
+    same = got.shape == (viz["viz_h"], viz["viz_w"], 3) and np.array_equal(got, to_uint8(im))
+    print(f"path 12: view 0 ({got.shape[1]}x{got.shape[0]}) decoded equal to render_view's "
+          f"uint8 here={same}", flush=True)
+    if not same:
+        fail("path 12: final_recon's view 0 differs from render_view in this process")
     return launches
 
 
@@ -1553,9 +1881,11 @@ def main() -> None:
     library = library_k3(x)
     bounds = report_bounds(kernel_work(x), times, label)
     report_fused_cull(x, "fused render")
-    del view, x, cases
+    del x, cases
+    # path 11 renders this map (path 1's final one) at this pose
+    final_map = (view, q_l, t_l, rt.cam)
     profile_frame(rt, FRAMES, "path 1", device)
-    del rt
+    del rt, view
     torch.cuda.empty_cache()
 
     rt, launches["path 2"] = drive_path("path 2", bench_config(work, tpu={"rebin_every": 1}),
@@ -1589,6 +1919,23 @@ def main() -> None:
     launches.update(drive_real(real, work, device, card))
     torch.cuda.empty_cache()
     launches.update(drive_training(real, work, device, card))
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    m = generic_map(*final_map, device)
+    print(f"path 11: render_gaussians on path 1's final map, {m.view.means3d.shape[0]} Gaussians, "
+          f"{m.b.n_pairs} pairs, {WIDTH}x{HEIGHT}", flush=True)
+    launches["path 11"] = drive_generic(m)
+    wide = check_generic_kernels(m, f"path 11, {WIDTH}x{HEIGHT}")
+    for table, wide_table in zip((errs, times, bounds, library), wide):
+        table.update(wide_table)
+    del m, final_map
+    torch.cuda.empty_cache()
+    check_references(device)
+    print(f"path 11: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    launches.update(drive_viewers(work, device))
+    print(f"path 12: {time.time() - t0:.1f} s", flush=True)
 
     rows = []
     for name, (replaces, source) in KERNELS.items():

@@ -211,39 +211,71 @@ __device__ __forceinline__ unsigned reach_warp_mask(const Reach& r) {
   return mask;
 }
 
-// A pair staged for the composite walks, one 48-byte structure: an evaluation
-// is one 16-byte and one 8-byte broadcast read at one base address, an
-// applied pair two more. rx, ry are the centre minus the tile's origin, the
-// walk's own first subtraction, so dx = rx - lx rounds as (x - ox) - lx does.
+// A pair staged for the composite walks: its geometry and NCH channels, the
+// channels as QUADS float4 and the rest as single floats. At NCH = 5 it is one
+// 48-byte structure (geo, channels 0-3, geo2, channel 4): an evaluation is one
+// 16-byte and one 8-byte broadcast read at one base address, an applied pair
+// two more. Fewer than four channels take the first lanes of one float4. rx,
+// ry are the centre minus the tile's origin, the walk's own first
+// subtraction, so dx = rx - lx rounds as (x - ox) - lx does.
+template <int NCH>
 struct __align__(16) StagedPair {
+  static constexpr int QUADS = NCH < 4 ? 1 : NCH / 4;
+  static constexpr int REST = NCH > 4 * QUADS ? NCH - 4 * QUADS : 0;
   float4 geo;  // rx, ry, conic a, conic b
-  float4 chan;  // channels 0-3
+  float4 quad[QUADS];  // channels 0 .. 4 QUADS - 1
   float2 geo2;  // conic c, opacity
-  float chan4;  // channel 4
-  float pad;
+  float rest[REST > 0 ? REST : 1];  // channels 4 QUADS .. NCH - 1
+
+  __device__ __forceinline__ void set_channels(const float* c) {
+#pragma unroll
+    for (int q = 0; q < QUADS; ++q) {
+      const int i = 4 * q;
+      quad[q] = make_float4(c[i], i + 1 < NCH ? c[i + 1] : 0.0f, i + 2 < NCH ? c[i + 2] : 0.0f,
+                            i + 3 < NCH ? c[i + 3] : 0.0f);
+    }
+#pragma unroll
+    for (int r = 0; r < REST; ++r) rest[r] = c[4 * QUADS + r];
+  }
+
+  __device__ __forceinline__ void channels(float* c) const {
+#pragma unroll
+    for (int q = 0; q < QUADS; ++q) {
+      const float4 v = quad[q];
+      const float lanes[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (4 * q + j < NCH) c[4 * q + j] = lanes[j];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < REST; ++r) c[4 * QUADS + r] = rest[r];
+  }
 };
 
 // Stages one pair from its compositing attributes (centre x, y in image pixels,
-// conic, opacity, five channels) and returns the mask of the warps that must
+// conic, opacity, NCH channels c) and returns the mask of the warps that must
 // visit it.
-__device__ __forceinline__ unsigned stage_values(StagedPair& s, float x, float y, float ca,
-                                                 float cb, float cc, float op, float c0, float c1,
-                                                 float c2, float c3, float c4, float ox,
-                                                 float oy) {
+template <int NCH>
+__device__ __forceinline__ unsigned stage_values(StagedPair<NCH>& s, float x, float y, float ca,
+                                                 float cb, float cc, float op, const float* c,
+                                                 float ox, float oy) {
   const float rx = x - ox, ry = y - oy;
   s.geo = make_float4(rx, ry, ca, cb);
-  s.chan = make_float4(c0, c1, c2, c3);
+  s.set_channels(c);
   s.geo2 = make_float2(cc, op);
-  s.chan4 = c4;
   return reach_warp_mask(pair_reach(rx, ry, ca, cb, cc, op));
 }
 
-// Stages the 11-column row `a` of one pair and returns the mask of the warps
-// that must visit it.
-__device__ __forceinline__ unsigned stage_pair(StagedPair& s, const float* __restrict__ a,
+// Stages the (6 + NCH)-column row `a` of one pair and returns the mask of the
+// warps that must visit it.
+template <int NCH>
+__device__ __forceinline__ unsigned stage_pair(StagedPair<NCH>& s, const float* __restrict__ a,
                                                float ox, float oy) {
-  return stage_values(s, a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], a[9], a[10], ox,
-                      oy);
+  float c[NCH];
+#pragma unroll
+  for (int i = 0; i < NCH; ++i) c[i] = a[6 + i];
+  return stage_values(s, a[0], a[1], a[2], a[3], a[4], a[5], c, ox, oy);
 }
 
 // ---------------------------------------------------------------------------
@@ -259,7 +291,8 @@ __device__ __forceinline__ unsigned stage_pair(StagedPair& s, const float* __res
 
 // One pixel's evaluation of a staged pair; `index` is the pair's 1-based place
 // in its tile's list (the pixel's n_contrib if the pair is applied).
-__device__ __forceinline__ void composite_pair(const StagedPair& p, float fx, float fy,
+template <int NCH>
+__device__ __forceinline__ void composite_pair(const StagedPair<NCH>& p, float fx, float fy,
                                                int index, float& T, float* acc, int& last,
                                                bool& done) {
   const float4 g = p.geo;
@@ -276,19 +309,17 @@ __device__ __forceinline__ void composite_pair(const StagedPair& p, float fx, fl
     return;
   }
   const float wgt = alpha * T;
-  const float4 c = p.chan;
-  acc[0] += c.x * wgt;
-  acc[1] += c.y * wgt;
-  acc[2] += c.z * wgt;
-  acc[3] += c.w * wgt;
-  acc[4] += p.chan4 * wgt;
+  float c[NCH];
+  p.channels(c);
+#pragma unroll
+  for (int i = 0; i < NCH; ++i) acc[i] += c[i] * wgt;
   T = test_T;
   last = index;
 }
 
 // The pixel a thread owns in its tile (WarpShape) and its state in the walk.
+template <int NCH>
 struct WalkPixel {
-  static constexpr int NCH = 5;  // StagedPair holds exactly five channels
   int pxi, pyi;
   bool inside, done;
   float ox, oy, fx, fy;  // the tile's origin; the pixel inside the tile
@@ -327,11 +358,11 @@ struct WalkPixel {
 
 // What one walk step stages: BATCHES batches of 256 pairs and, per warp of the
 // tile, the list of staged pairs it must visit, a bit per pair.
-template <int BATCHES>
+template <int BATCHES, int NCH>
 struct WalkShared {
   static constexpr int PAIRS = BATCHES * PIX;
   static constexpr int WORDS = PAIRS / 32;
-  StagedPair pairs[PAIRS];
+  StagedPair<NCH> pairs[PAIRS];
   unsigned words[PIX / 32][WORDS];
 };
 
@@ -350,9 +381,9 @@ __device__ __forceinline__ void publish_masks(unsigned (*words)[WORDS], unsigned
 // A warp walks the first n staged pairs of its list; the list's first pair is
 // pair `first` (1-based) of the tile. With TRIM the list may hold set bits
 // past n, which are masked off (a walk that stages once and walks a part).
-template <bool TRIM>
-__device__ __forceinline__ void walk_words(const StagedPair* pairs, const unsigned* words, int n,
-                                           int first, WalkPixel& p) {
+template <bool TRIM, int NCH>
+__device__ __forceinline__ void walk_words(const StagedPair<NCH>* pairs, const unsigned* words,
+                                           int n, int first, WalkPixel<NCH>& p) {
   for (int k = 0; k < (n + 31) >> 5; ++k) {
     if (__all_sync(FULL, p.done)) break;
     unsigned bits = words[k];
@@ -365,17 +396,19 @@ __device__ __forceinline__ void walk_words(const StagedPair* pairs, const unsign
   }
 }
 
-// The whole walk of the tile's pairs [start, end). A Stager has a type Row,
-// load(i) -> Row (pair i's numbers from device memory) and
-// stage(StagedPair&, Row, ox, oy) -> the pair's warp mask. With BATCHES > 1 a
-// thread loads the rows of all its pairs of the step before it stages one.
+// The whole walk of the tile's pairs [start, end). A Stager has a channel
+// count NCH, a type Row, load(i) -> Row (pair i's numbers from device memory)
+// and stage(StagedPair<NCH>&, Row, ox, oy) -> the pair's warp mask. With
+// BATCHES > 1 a thread loads the rows of all its pairs of the step before it
+// stages one.
 template <int BATCHES, class Stager>
-__device__ __forceinline__ void composite_walk(WalkShared<BATCHES>& sh, const Stager& stager,
-                                               int start, int end, int grid_x, int width,
-                                               int height, float* __restrict__ out) {
-  constexpr int STEP = WalkShared<BATCHES>::PAIRS;
+__device__ __forceinline__ void composite_walk(WalkShared<BATCHES, Stager::NCH>& sh,
+                                               const Stager& stager, int start, int end,
+                                               int grid_x, int width, int height,
+                                               float* __restrict__ out) {
+  constexpr int STEP = WalkShared<BATCHES, Stager::NCH>::PAIRS;
   const int tid = threadIdx.x, warp = tid >> 5;
-  WalkPixel p(grid_x, width, height);
+  WalkPixel<Stager::NCH> p(grid_x, width, height);
   for (int base = start; base < end; base += STEP) {
     if (__syncthreads_count(p.done) == PIX) break;
     typename Stager::Row rows[BATCHES];
@@ -406,6 +439,7 @@ __device__ __forceinline__ void composite_walk(WalkShared<BATCHES>& sh, const St
 // out of the skip mask, splatam_tpu/render/pallas/fused_iso.py:168-178); with
 // det == 0 the conic is degenerate and the rule gives it the whole plane.
 struct ProjectedRows {
+  static constexpr int NCH = 5;
   struct Row {
     float4 lo, hi;
   };
@@ -420,12 +454,13 @@ struct ProjectedRows {
     return {r[0], r[1]};
   }
 
-  __device__ __forceinline__ unsigned stage(StagedPair& s, const Row& r, float ox,
+  __device__ __forceinline__ unsigned stage(StagedPair<NCH>& s, const Row& r, float ox,
                                             float oy) const {
     const float w[8] = {r.lo.x, r.lo.y, r.lo.z, r.lo.w, r.hi.x, r.hi.y, r.hi.z, r.hi.w};
     const ProjIso q = project_iso(w, pose, width, height);
-    return stage_values(s, q.pix_x, q.pix_y, q.conic_a, q.conic_b, q.conic_c, q.opacity, w[5],
-                        w[6], w[7], q.tz, q.tz * q.tz, ox, oy);
+    const float c[NCH] = {w[5], w[6], w[7], q.tz, q.tz * q.tz};
+    return stage_values(s, q.pix_x, q.pix_y, q.conic_a, q.conic_b, q.conic_c, q.opacity, c, ox,
+                        oy);
   }
 };
 

@@ -40,26 +40,40 @@
 //     coalesced. Two barriers per batch.
 // No global atomics. Every sum is taken in a fixed tree (the lanes' halving
 // order, then the warps in order; a warp that did not touch a pair adds
-// nothing), so two launches are equal bit for bit. The launch bounds ask for
-// four resident blocks per SM: that caps the kernel at 64 registers and spills
-// 32 bytes a thread, and still runs faster than three blocks with no spill
-// (the variants' times are in PERF.md).
+// nothing), so two launches are equal bit for bit.
+//
+// The channel count NCH is a template parameter, 1 to 10 as the TPU kernel
+// takes (6 + ch columns of its 16-row attribute block): the 6 + NCH gradient
+// columns fit the reduce-scatter's 16 slots, padded with zeros. The launch
+// bounds ask each instance for the resident blocks per SM (K2_MIN_BLOCKS) that
+// ran fastest on an NVIDIA H100 80GB HBM3 at 700 W: at five channels four,
+// which caps the kernel at 64 registers and spills 32 bytes a thread, and
+// still runs faster than three blocks with no spill (PERF.md).
 #include "common.cuh"
 
 namespace splatam {
 
 constexpr int BB = 64;  // pairs per staged batch: a warp's list is one 64-bit word
-constexpr int NCH = 5;  // the AoS staging holds exactly five channels
-constexpr int NA = 6 + NCH;  // attribute columns = gradient columns
-constexpr int NS = 16;  // NA padded to a power of two: the reduce-scatter's slots
+constexpr int NS = 16;  // 6 + NCH padded to a power of two: the reduce-scatter's slots
 constexpr int WARPS = PIX / 32;
+constexpr int MAX_CH = NS - 6;
+// Resident blocks per SM asked of the compiler, by channel count (index 0
+// unused): a cap of 65536 / 256 / K2_MIN_BLOCKS registers a thread. Measured
+// on an NVIDIA H100 80GB HBM3 at 700 W (scripts/k2_blocks.py, PERF.md): up to
+// three channels the kernel fits 64 registers whatever is asked; from 4 to 8
+// four blocks with a spill of 16-56 bytes beat three with less or none; at 9
+// and 10 the spill grows to 72-96 bytes and three blocks (80 registers) are
+// faster.
+constexpr int K2_MIN_BLOCKS[MAX_CH + 1] = {0, 4, 4, 4, 4, 4, 4, 4, 4, 3, 3};
 
-__global__ void __launch_bounds__(PIX, 4)
+template <int NCH>
+__global__ void __launch_bounds__(PIX, K2_MIN_BLOCKS[NCH])
     composite_backward_kernel(const float* __restrict__ attrs, const int* __restrict__ pair_gauss,
                               const int* __restrict__ tile_start, int grid_x, int width,
                               int height, const float* __restrict__ state,
                               const float* __restrict__ g, float* __restrict__ dpair) {
-  __shared__ StagedPair sh[BB];
+  constexpr int NA = 6 + NCH;  // attribute columns = gradient columns
+  __shared__ StagedPair<NCH> sh[BB];
   __shared__ float s_red[WARPS][BB * NA];  // warp totals, [pair][column]
   __shared__ unsigned s_words[WARPS][2];  // per warp: the staged pairs its pixels can reach
   __shared__ unsigned long long s_touched[WARPS];  // pairs of the batch each warp reduced
@@ -78,7 +92,9 @@ __global__ void __launch_bounds__(PIX, 4)
   // T_final = 1 - silhouette: the very float the plain version reconstructs.
   float T = 1.0f;
   int nc = 0;
-  float gch[NCH + 1] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // channel cotangents, the silhouette's
+  float gch[NCH + 1];  // channel cotangents, the silhouette's
+#pragma unroll
+  for (int c = 0; c <= NCH; ++c) gch[c] = 0.0f;
   if (inside) {
     const size_t hw = size_t(width) * height, pix = size_t(pyi) * width + pxi;
     T = 1.0f - state[NCH * hw + pix];
@@ -97,8 +113,11 @@ __global__ void __launch_bounds__(PIX, 4)
 
   // Suffix accumulators. The silhouette's previous value is a constant 1:
   // before the first applied pair last_alpha is 0, which gives the same accum.
-  float accum[NCH + 1] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float last_c[NCH] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  float accum[NCH + 1], last_c[NCH];
+#pragma unroll
+  for (int c = 0; c <= NCH; ++c) accum[c] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) last_c[c] = 0.0f;
   float last_alpha = 0.0f;
 
   for (int bend = reach; bend > start; bend -= BB) {
@@ -135,7 +154,7 @@ __global__ void __launch_bounds__(PIX, 4)
       for (int c = 0; c < NS; ++c) r[c] = 0.0f;
       bool contrib = false;
       if (jj < jlim) {
-        const StagedPair& p = sh[jj];
+        const StagedPair<NCH>& p = sh[jj];
         const float4 gq = p.geo;
         const float2 gq2 = p.geo2;
         const float dx = gq.x - fx;
@@ -151,8 +170,8 @@ __global__ void __launch_bounds__(PIX, 4)
             contrib = true;
             T = T / (1.0f - alpha);
             const float wgt = alpha * T;
-            const float4 ch = p.chan;
-            const float val[NCH] = {ch.x, ch.y, ch.z, ch.w, p.chan4};
+            float val[NCH];
+            p.channels(val);
             float dalpha = 0.0f;
 #pragma unroll
             for (int c = 0; c <= NCH; ++c) {
@@ -207,23 +226,55 @@ __global__ void __launch_bounds__(PIX, 4)
   }
 }
 
-}  // namespace splatam
-
-extern "C" int composite_backward_ch5(const float* attrs, const int* pair_gauss,
-                                      const int* tile_start, int grid_x, int grid_y, int width,
-                                      int height, const float* state, const float* g,
-                                      float* dpair, void* stream) {
+template <int NCH>
+int launch_composite_backward(const float* attrs, const int* pair_gauss, const int* tile_start,
+                              int grid_x, int grid_y, int width, int height, const float* state,
+                              const float* g, float* dpair, void* stream) {
   const int tiles = grid_x * grid_y;
   if (tiles > 0) {
-    splatam::composite_backward_kernel<<<tiles, splatam::PIX, 0, (cudaStream_t)stream>>>(
+    composite_backward_kernel<NCH><<<tiles, PIX, 0, (cudaStream_t)stream>>>(
         attrs, pair_gauss, tile_start, grid_x, width, height, state, g, dpair);
   }
   return (int)cudaGetLastError();
 }
 
-// What the compiler gave K2: registers and local (spill) bytes per thread,
-// and resident blocks per SM.
-extern "C" int composite_backward_info(int* regs, int* local_bytes, int* blocks_per_sm) {
-  return splatam::kernel_info((const void*)splatam::composite_backward_kernel, splatam::PIX,
-                              regs, local_bytes, blocks_per_sm);
+// The instance for ch channels, or null for a count no instance takes.
+inline const void* composite_backward_fn(int ch) {
+  switch (ch) {
+#define K2_CASE(n) \
+  case n:          \
+    return (const void*)composite_backward_kernel<n>;
+    K2_CASE(1) K2_CASE(2) K2_CASE(3) K2_CASE(4) K2_CASE(5)
+    K2_CASE(6) K2_CASE(7) K2_CASE(8) K2_CASE(9) K2_CASE(10)
+#undef K2_CASE
+  }
+  return nullptr;
+}
+
+}  // namespace splatam
+
+// K2 at ch channels: attrs [N or P, 6 + ch], state [ch + 2, H, W], g
+// [ch + 1, H, W], dpair [P, 6 + ch].
+extern "C" int composite_backward(int ch, const float* attrs, const int* pair_gauss,
+                                  const int* tile_start, int grid_x, int grid_y, int width,
+                                  int height, const float* state, const float* g, float* dpair,
+                                  void* stream) {
+  switch (ch) {
+#define K2_LAUNCH(n) \
+  case n:            \
+    return splatam::launch_composite_backward<n>(attrs, pair_gauss, tile_start, grid_x, grid_y, \
+                                                 width, height, state, g, dpair, stream);
+    K2_LAUNCH(1) K2_LAUNCH(2) K2_LAUNCH(3) K2_LAUNCH(4) K2_LAUNCH(5)
+    K2_LAUNCH(6) K2_LAUNCH(7) K2_LAUNCH(8) K2_LAUNCH(9) K2_LAUNCH(10)
+#undef K2_LAUNCH
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// What the compiler gave K2's instance at ch channels: registers and local
+// (spill) bytes per thread, and resident blocks per SM.
+extern "C" int composite_backward_info(int ch, int* regs, int* local_bytes, int* blocks_per_sm) {
+  const void* fn = splatam::composite_backward_fn(ch);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return splatam::kernel_info(fn, splatam::PIX, regs, local_bytes, blocks_per_sm);
 }

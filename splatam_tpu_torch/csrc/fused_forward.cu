@@ -40,7 +40,7 @@ __global__ void __launch_bounds__(PIX, MIN_BLOCKS)
     fused_forward_kernel(const float* __restrict__ world8, const int* __restrict__ pair_gauss,
                          const float* __restrict__ pose, const int* __restrict__ tile_start,
                          int grid_x, int width, int height, float* __restrict__ out) {
-  __shared__ WalkShared<1> sh;
+  __shared__ WalkShared<1, ProjectedRows::NCH> sh;
   __shared__ Pose s_pose;
   if (threadIdx.x == 0) s_pose = load_pose(pose);
   __syncthreads();

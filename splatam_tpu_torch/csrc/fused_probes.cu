@@ -44,7 +44,7 @@ __global__ void __launch_bounds__(PIX)
     fused_forward2_kernel(const float* __restrict__ world8, const float* __restrict__ pose,
                           const int* __restrict__ tile_start, int grid_x, int width, int height,
                           float* __restrict__ out) {
-  __shared__ WalkShared<2> sh;
+  __shared__ WalkShared<2, ProjectedRows::NCH> sh;
   __shared__ Pose s_pose;
   if (threadIdx.x == 0) s_pose = load_pose(pose);
   __syncthreads();
@@ -57,14 +57,14 @@ __global__ void __launch_bounds__(PIX)
     fused_math_only_kernel(const float* __restrict__ world8, const float* __restrict__ pose,
                            const int* __restrict__ tile_start, int grid_x, int width, int height,
                            float* __restrict__ out) {
-  __shared__ WalkShared<1> sh;  // the first C slots and words are used
+  __shared__ WalkShared<1, ProjectedRows::NCH> sh;  // the first C slots and words are used
   __shared__ Pose s_pose;
   const int tid = threadIdx.x, warp = tid >> 5;
   const int start = tile_start[blockIdx.x], num = tile_start[blockIdx.x + 1] - start;
   if (tid == 0) s_pose = load_pose(pose);
   __syncthreads();
   const ProjectedRows rows = {world8, nullptr, s_pose, float(width), float(height)};
-  WalkPixel p(grid_x, width, height);
+  WalkPixel<ProjectedRows::NCH> p(grid_x, width, height);
   unsigned mask = 0;
   if (tid < min(num, C)) mask = rows.stage(sh.pairs[tid], rows.load(start + tid), p.ox, p.oy);
   publish_masks(sh.words, mask, warp);

@@ -22,10 +22,11 @@
 //   - 8 columns (the fused path's world rows, 32-byte aligned): two threads
 //     per Gaussian, each summing one 16-byte half of the row as a float4, 16
 //     Gaussians per warp (segment_reduce_half_kernel);
-//   - 11 columns (the generic path's screen rows, 44 bytes, not 16-byte
-//     aligned), and 8 columns whose rows are not 16-byte aligned: one thread
-//     per (Gaussian, column), ~2.9 Gaussians per warp at 11 with no idle lanes
-//     (segment_reduce_kernel).
+//   - 11 columns (the generic path's screen rows at five channels, 44 bytes,
+//     not 16-byte aligned), every other width of the generic render's rows
+//     (6 + ch columns, 7 to 16 for ch 1 to 10), and 8 columns whose rows are
+//     not 16-byte aligned: one thread per (Gaussian, column), ~2.9 Gaussians
+//     per warp at 11 with no idle lanes (segment_reduce_kernel<NC>).
 // The loop over a Gaussian's slots is unrolled by UNROLL: that many dst loads,
 // then that many row loads, are in flight before the adds. Each thread adds
 // its Gaussian's rows in slot order, so the summation order is fixed (the
@@ -120,22 +121,42 @@ int launch_segment_reduce(const float* dpair, const int* dst, const int* offsets
   return (int)cudaGetLastError();
 }
 
-}  // namespace splatam
-
-extern "C" int segment_reduce8(const float* dpair, const int* dst, const int* offsets,
-                               const int* counts, int n, float* out, void* stream) {
-  return splatam::launch_segment_reduce<8>(dpair, dst, offsets, counts, n, out, stream);
+// The instance for nc columns (8: the float4 kernel), or null for a width no
+// instance takes.
+inline const void* segment_reduce_fn(int nc) {
+  switch (nc) {
+    case 8:
+      return (const void*)segment_reduce_half_kernel;
+#define K3_CASE(n) \
+  case n:          \
+    return (const void*)segment_reduce_kernel<n>;
+    K3_CASE(7) K3_CASE(9) K3_CASE(10) K3_CASE(11) K3_CASE(12)
+    K3_CASE(13) K3_CASE(14) K3_CASE(15) K3_CASE(16)
+#undef K3_CASE
+  }
+  return nullptr;
 }
 
-extern "C" int segment_reduce11(const float* dpair, const int* dst, const int* offsets,
-                                const int* counts, int n, float* out, void* stream) {
-  return splatam::launch_segment_reduce<11>(dpair, dst, offsets, counts, n, out, stream);
+}  // namespace splatam
+
+// K3 at nc columns, 7 to 16: dpair [P, nc] -> out [n, nc].
+extern "C" int segment_reduce(int nc, const float* dpair, const int* dst, const int* offsets,
+                              const int* counts, int n, float* out, void* stream) {
+  switch (nc) {
+#define K3_LAUNCH(k) \
+  case k:            \
+    return splatam::launch_segment_reduce<k>(dpair, dst, offsets, counts, n, out, stream);
+    K3_LAUNCH(7) K3_LAUNCH(8) K3_LAUNCH(9) K3_LAUNCH(10) K3_LAUNCH(11)
+    K3_LAUNCH(12) K3_LAUNCH(13) K3_LAUNCH(14) K3_LAUNCH(15) K3_LAUNCH(16)
+#undef K3_LAUNCH
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // What the compiler gave K3's kernel at `nc` columns (8: the float4 kernel):
 // registers and local (spill) bytes per thread, and resident blocks per SM.
 extern "C" int segment_reduce_info(int nc, int* regs, int* local_bytes, int* blocks_per_sm) {
-  const void* fn = nc == 8 ? (const void*)splatam::segment_reduce_half_kernel
-                           : (const void*)splatam::segment_reduce_kernel<11>;
+  const void* fn = splatam::segment_reduce_fn(nc);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return splatam::kernel_info(fn, splatam::K3_THREADS, regs, local_bytes, blocks_per_sm);
 }

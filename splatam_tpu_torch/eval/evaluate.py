@@ -71,13 +71,14 @@ def _map_from_params(params: dict, device) -> GaussianMap:
 
 
 @torch.no_grad()
-def render_at_pose(gm: GaussianMap, q, t, cam: Camera) -> RenderOutput:
-    """Render the map at pose (q, t) (wxyz quaternion, translation)."""
+def render_at_pose(gm: GaussianMap, q, t, cam: Camera, backend: str = "auto") -> RenderOutput:
+    """Render the map at pose (q, t) (wxyz quaternion, translation) with
+    the generic render's `backend` (render.api.render_gaussians)."""
     q = torch.as_tensor(q, dtype=torch.float32, device=gm.device)
     t = torch.as_tensor(t, dtype=torch.float32, device=gm.device)
     means_cam, rots_cam = transform_to_frame(gm, q, t, False, False)
     return render_rgbd_sil(cam, means_cam, gm.rgb_colors, rots_cam, gm.logit_opacities,
-                           gm.log_scales, gm.active)
+                           gm.log_scales, gm.active, backend=backend)
 
 
 def est_w2c_list_from_params(params: dict, num_frames: int, gt_w2c_list):
@@ -209,10 +210,12 @@ def _quat_from_w2c_np(w2c: np.ndarray) -> np.ndarray:
     return q / np.linalg.norm(q)
 
 
-def render_at_w2c(gm: GaussianMap, w2c: np.ndarray, cam: Camera) -> RenderOutput:
+def render_at_w2c(gm: GaussianMap, w2c: np.ndarray, cam: Camera,
+                  backend: str = "auto") -> RenderOutput:
     """Render at an arbitrary pose given as a 4x4 w2c matrix (NVS eval path:
     utils/eval_helpers.py:672-691)."""
-    return render_at_pose(gm, _quat_from_w2c_np(w2c), w2c[:3, 3].astype(np.float32), cam)
+    return render_at_pose(gm, _quat_from_w2c_np(w2c), w2c[:3, 3].astype(np.float32), cam,
+                          backend)
 
 
 def _view_metrics(out: RenderOutput, color, depth, sil_thres: float, tracking_only: bool,

@@ -38,15 +38,15 @@ _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
 # name -> argument types (every function returns int: a cudaError_t)
 _SIGNATURES = {
-    "composite_forward_ch5": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "composite_backward_ch5": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # K1, K2 and K3 take their channel count (K3: its columns) first
+    "composite_forward": [_I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "composite_backward": [_I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "fused_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "fused_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "segment_reduce8": [_P, _P, _P, _P, _I, _P, _P],
-    "segment_reduce11": [_P, _P, _P, _P, _I, _P, _P],
+    "segment_reduce": [_I, _P, _P, _P, _P, _I, _P, _P],
     # what the compiler gave a kernel (registers, local bytes, blocks per SM)
-    "composite_forward_info": [_IP, _IP, _IP],
-    "composite_backward_info": [_IP, _IP, _IP],
+    "composite_forward_info": [_I, _IP, _IP, _IP],
+    "composite_backward_info": [_I, _IP, _IP, _IP],
     "fused_forward_info": [_IP, _IP, _IP],
     "fused_backward_info": [_IP, _IP, _IP],
     "segment_reduce_info": [_I, _IP, _IP, _IP],

@@ -1,14 +1,15 @@
-"""Public render API: RGB + depth + silhouette + depth^2 in one pass.
+"""Public render API: RGB + depth + silhouette + depth^2 in one pass, and
+the generic render of any channels.
 
 Counterpart of splatam_tpu/render/api.py: one pass composites r, g, b, z,
 z^2 and emits the silhouette from the transmittance (silhouette =
-1 - T_final). Three renders: the generic differentiable one (projection
-by autograd, K1 -> K2 -> K3), the pair-space tracking render (per-pair
-rows, gradients to the pose) and the fused isotropic mapping render. The
-reference's
-RenderConfig has no counterpart: each of its fields sizes a pair buffer
-or picks a backend, and the port sizes buffers exactly and has one
-backend per device.
+1 - T_final). Four renders: the generic differentiable one of any
+channels (render_gaussians; render_rgbd_sil is its r, g, b case:
+projection by autograd, K1 -> K2 -> K3), the pair-space tracking render
+(per-pair rows, gradients to the pose) and the fused isotropic mapping
+render. The reference's RenderConfig has no counterpart: its pair-buffer
+sizes have none (the port sizes buffers exactly, so nothing overflows),
+and its backend is the `backend` argument of the generic render.
 """
 from __future__ import annotations
 
@@ -19,8 +20,14 @@ import torch
 from splatam_tpu_torch.core.camera import Camera
 from splatam_tpu_torch.core.transforms import normalize
 from splatam_tpu_torch.render import binning as binning_mod
-from splatam_tpu_torch.render import composite, fused_iso, pairspace
+from splatam_tpu_torch.render import composite, composite_tiles, fused_iso, naive, pairspace
 from splatam_tpu_torch.render import projection as projection_mod
+
+# The generic render's backends: the kernels (K1 -> K2 -> K3 on the card,
+# their plain versions on the CPU; "pallas" is the JAX package's name for
+# them, as a config may say) and the two references, on either device.
+KERNEL_BACKENDS = ("auto", "pallas")
+BACKENDS = (*KERNEL_BACKENDS, "naive", "tiles")
 
 
 class RenderOutput(NamedTuple):
@@ -92,12 +99,103 @@ def _no_radii(ps: PairStructure) -> torch.Tensor:
     return torch.zeros(ps.counts.shape, dtype=torch.int32, device=ps.counts.device)
 
 
+def _bins(proj, aux, cam: Camera) -> PairStructure:
+    with torch.no_grad():
+        b = binning_mod.build_bins(proj, aux, cam.width, cam.height, far=cam.far)
+    return PairStructure(b.pair_gauss, b.tile_start, b.offsets, b.counts, b.dst, b.n_pairs)
+
+
+def _render(cam: Camera, means3d, colors, unnorm_rotations, logit_opacities, log_scales, active,
+            backend, means2d_dummy, append_depth, intrinsics_override, lim_wh, pair_structure):
+    """The backend's own rows, radii and pair count. The kernels' rows are
+    [colors..., (z, z^2,) sil] (the silhouette from the transmittance), the
+    references' [colors..., (z, 1, z^2)] (the silhouette a composited
+    constant 1)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend: one of {BACKENDS}, got {backend!r}")
+    quats, logit_op, scales = _prep_gaussians(unnorm_rotations, logit_opacities, log_scales)
+    fx, fy, cx, cy = (intrinsics_override if intrinsics_override is not None
+                      else (cam.fx, cam.fy, cam.cx, cam.cy))
+    proj, aux = projection_mod.project(
+        means3d, quats, logit_op, scales, active, cam.w2c_tensor(means3d.device),
+        fx, fy, cx, cy, cam.width, cam.height, lim_wh=lim_wh)
+    opacity = proj.opacity
+    if pair_structure is not None:
+        opacity = torch.where(active, opacity, 0.0)
+    xy = proj.xy
+    if means2d_dummy is not None:
+        xy = xy + torch.stack((means2d_dummy[:, 0] * (cam.width * 0.5),
+                               means2d_dummy[:, 1] * (cam.height * 0.5)), dim=-1)
+    kernels = backend in KERNEL_BACKENDS
+    chans = colors
+    if append_depth:
+        depth = proj.depth[:, None]
+        extra = [depth, depth * depth] if kernels else [depth, torch.ones_like(depth),
+                                                        depth * depth]
+        chans = torch.cat([colors, *extra], dim=1)
+    if kernels:
+        composite.check_channels(chans.shape[1])
+        ps = pair_structure if pair_structure is not None else _bins(proj, aux, cam)
+        img = composite.CompositeGauss.apply(xy, proj.conic, opacity, chans, ps,
+                                             cam.width, cam.height)
+        return img, aux.radius, ps.n_pairs
+    if backend == "naive":
+        img = naive.composite_naive(proj._replace(xy=xy, opacity=opacity), aux, chans,
+                                    cam.width, cam.height)
+        return img, aux.radius, 0
+    ps = pair_structure if pair_structure is not None else _bins(proj, aux, cam)
+    lists, lens = composite_tiles.tile_lists(ps.pair_gauss, ps.tile_start)
+    px, py = (torch.from_numpy(a).to(xy.device)
+              for a in composite_tiles.tile_pixel_coords(cam.width, cam.height))
+    acc = composite_tiles.composite_tiles(xy, proj.conic, opacity, chans, lists, lens, px, py)
+    return composite.assemble_image(acc, cam.width, cam.height), aux.radius, ps.n_pairs
+
+
+def render_gaussians(cam: Camera, means3d, colors, unnorm_rotations, logit_opacities,
+                     log_scales, active, backend: str = "auto", means2d_dummy=None,
+                     append_depth_channels: bool = True, intrinsics_override=None,
+                     lim_wh=None, pair_structure: PairStructure | None = None):
+    """Differentiable render of any per-Gaussian channels colors [N, C].
+
+    Returns (img, radii [N] int32, n_pairs). img is [C + 3, H, W], the rows
+    [colors..., z, sil, z^2], with `append_depth_channels`; [C, H, W]
+    without. Every pair buffer is sized exactly, so nothing overflows and
+    there is no overflow scalar (the JAX function's third output).
+
+    backend: "auto" (or "pallas") composites with the kernels K1 -> K2 ->
+    K3 on the card and their plain versions on the CPU; they take 1 to 10
+    channels (C + 2 with depth appended, C without), as the TPU kernels do,
+    and raise a ValueError past that. "naive" (render/naive.py, n_pairs 0)
+    and "tiles" (render/composite_tiles.py) are the references, on either
+    device and at any C.
+
+    means3d are in the frame cam.w2c maps from. intrinsics_override (fx,
+    fy, cx, cy) replaces cam's intrinsics (the image size stays cam's), and
+    lim_wh the (width, height) of the projection's frustum clamp
+    (render.projection.project): a render of one band of a larger image.
+    pair_structure reuses an earlier binning as render_rgbd_sil does;
+    means2d_dummy harvests the screen-space gradient as there."""
+    img, radii, n_pairs = _render(cam, means3d, colors, unnorm_rotations, logit_opacities,
+                                  log_scales, active, backend, means2d_dummy,
+                                  append_depth_channels, intrinsics_override, lim_wh,
+                                  pair_structure)
+    nu = colors.shape[1]
+    if backend in KERNEL_BACKENDS:
+        # kernel rows [colors..., z, z^2, sil] -> [colors..., z, sil, z^2];
+        # without depth the silhouette row is dropped
+        img = (torch.cat([img[:nu + 1], img[nu + 2:nu + 3], img[nu + 1:nu + 2]])
+               if append_depth_channels else img[:nu])
+    return img, radii, n_pairs
+
+
 def render_rgbd_sil(cam: Camera, means3d, rgb_colors, unnorm_rotations, logit_opacities,
                     log_scales, active, pair_structure: PairStructure | None = None,
-                    means2d_dummy=None) -> RenderOutput:
-    """Generic differentiable render: project (plain PyTorch, so autograd
-    carries the gradients to every input), bin under no_grad, composite
-    with K1 forward and K2 -> K3 backward (composite.CompositeGauss).
+                    means2d_dummy=None, backend: str = "auto") -> RenderOutput:
+    """Generic differentiable render of r, g, b, z, z^2 and the
+    silhouette: project (plain PyTorch, so autograd carries the gradients
+    to every input), bin under no_grad, composite with K1 forward and K2 ->
+    K3 backward (composite.CompositeGauss); `backend` as render_gaussians
+    takes it.
 
     means3d are in the frame cam.w2c maps from. `pair_structure` reuses an
     earlier binning; per-pair alpha still comes from this call's
@@ -110,25 +208,13 @@ def render_rgbd_sil(cam: Camera, means3d, rgb_colors, unnorm_rotations, logit_op
     densification statistic (splatam_tpu/render/api.py:313-319;
     utils/slam_external.py:100-104). radii come from this call's
     projection."""
-    proj, aux = project_gaussians(cam, means3d, unnorm_rotations, logit_opacities,
-                                  log_scales, active)
-    opacity = proj.opacity
-    if pair_structure is None:
-        with torch.no_grad():
-            b = binning_mod.build_bins(proj, aux, cam.width, cam.height, far=cam.far)
-        ps = PairStructure(b.pair_gauss, b.tile_start, b.offsets, b.counts, b.dst, b.n_pairs)
-    else:
-        ps = pair_structure
-        opacity = torch.where(active, opacity, 0.0)
-    xy = proj.xy
-    if means2d_dummy is not None:
-        xy = xy + torch.stack((means2d_dummy[:, 0] * (cam.width * 0.5),
-                               means2d_dummy[:, 1] * (cam.height * 0.5)), dim=-1)
-    depth = proj.depth[:, None]
-    chans = torch.cat([rgb_colors, depth, depth * depth], dim=1)
-    img = composite.CompositeGauss.apply(xy, proj.conic, opacity, chans, ps,
-                                         cam.width, cam.height)
-    return _public(img, aux.radius, ps.n_pairs)
+    img, radii, n_pairs = _render(cam, means3d, rgb_colors, unnorm_rotations, logit_opacities,
+                                  log_scales, active, backend, means2d_dummy, True, None, None,
+                                  pair_structure)
+    if backend in KERNEL_BACKENDS:
+        return _public(img, radii, n_pairs)
+    return RenderOutput(im=img[:3], depth=img[3], silhouette=img[4], depth_sq=img[5],
+                        radii=radii, n_pairs=n_pairs)
 
 
 def render_rgbd_sil_pairspace(cam: Camera, ps: PairStructure, q, t) -> RenderOutput:

@@ -23,6 +23,7 @@ import torch
 from splatam_tpu_torch.render.composite import (
     ALPHA_MAX,
     ALPHA_MIN,
+    CH,
     T_EPS,
     WARPS,
     _pair_alpha,
@@ -41,12 +42,16 @@ F32_OPS_PER_S = 67e12
 EVAL_OPS = 13  # dx, dy, power, the power > 0 test
 ALPHA_OPS = 4  # expf, opacity * G, the 0.99 clamp, the 1/255 test (power <= 0)
 HIT_OPS = 3  # T * (1 - alpha), the T < 1e-4 test (alpha >= 1/255)
-APPLY_OPS = 12  # the weight, 5 channels * (mul + add), n_contrib (applied)
+APPLY_OPS = 2  # the weight, n_contrib (applied) ...
+CHAN_APPLY_OPS = 2  # ... and per channel mul + add
 # Per pair-pixel evaluation of the backward walks (the reverse loop of
 # composite_backward_kernel and fused_backward_kernel), on top of EVAL_OPS
-# and ALPHA_OPS:
-BWD_APPLY_OPS = 51 + 11  # T / (1 - alpha), the weight, 6 suffix channels, and the
-#                          11 adds that sum the pair's gradient over its pixels
+# and ALPHA_OPS, at ch channels (5 in K5):
+BWD_APPLY_OPS = 17  # T / (1 - alpha), the weight, dalpha * T, the silhouette's suffix
+#                     channel (7), and the 6 adds that sum the geometry columns over
+#                     the pair's pixels ...
+BWD_CHAN_OPS = 9  # ... and per channel its suffix update (7), its gradient and the add
+#                   that sums it over the pixels
 BWD_UNCLAMPED_OPS = 22  # dpower and the conic / xy / opacity terms (alpha not clamped)
 # Per staged pair:
 PROJ_OPS = 79  # project_iso and the tz^2 of ProjectedRows::stage (common.cuh)
@@ -59,8 +64,11 @@ OP_SOURCES = {
     "ALPHA_OPS": (("common.cuh", "composite_pair"),),
     "HIT_OPS": (("common.cuh", "composite_pair"),),
     "APPLY_OPS": (("common.cuh", "composite_pair"),),
+    "CHAN_APPLY_OPS": (("common.cuh", "composite_pair"),),
     "BWD_APPLY_OPS": (("composite_backward.cu", "composite_backward_kernel"),
                       ("fused_backward.cu", "fused_backward_kernel")),
+    "BWD_CHAN_OPS": (("composite_backward.cu", "composite_backward_kernel"),
+                     ("fused_backward.cu", "fused_backward_kernel")),
     "BWD_UNCLAMPED_OPS": (("composite_backward.cu", "composite_backward_kernel"),
                           ("fused_backward.cu", "fused_backward_kernel")),
     "PROJ_OPS": (("common.cuh", "project_iso"), ("common.cuh", "ProjectedRows")),
@@ -161,13 +169,16 @@ def walk_counts(xy, conic, opacity, tile_start, width: int, height: int,
         fwd_visited_steps=fwd_visited, bwd_visited_steps=int(warp_nc.sum()))
 
 
-def forward_walk_ops(wc: WalkCounts) -> int:
+def forward_walk_ops(wc: WalkCounts, ch: int = CH) -> int:
+    """Float32 operations of a forward walk of ch channels."""
     return (EVAL_OPS * wc.evals + ALPHA_OPS * wc.alpha + HIT_OPS * wc.hits
-            + APPLY_OPS * wc.applied)
+            + (APPLY_OPS + CHAN_APPLY_OPS * ch) * wc.applied)
 
 
-def backward_walk_ops(wc: WalkCounts) -> int:
-    return (EVAL_OPS * wc.bwd_evals + ALPHA_OPS * wc.bwd_alpha + BWD_APPLY_OPS * wc.applied
+def backward_walk_ops(wc: WalkCounts, ch: int = CH) -> int:
+    """Float32 operations of a backward walk of ch channels."""
+    return (EVAL_OPS * wc.bwd_evals + ALPHA_OPS * wc.bwd_alpha
+            + (BWD_APPLY_OPS + BWD_CHAN_OPS * ch) * wc.applied
             + BWD_UNCLAMPED_OPS * wc.unclamped)
 
 

@@ -16,7 +16,9 @@ channels. K1 and K2 take them per Gaussian ([N, 6 + ch], gathered through
 the sorted pairs' Gaussian indices) or per sorted pair ([P, 6 + ch], with
 no index). Output rows of every forward: the channels, then the
 silhouette, then n_contrib (1-based index, within the tile, of the last
-pair applied at the pixel), as an image [ch + 2, H, W].
+pair applied at the pixel), as an image [ch + 2, H, W]. The kernels take
+1 to MAX_CH channels, as the TPU kernels do (their attribute block holds
+16 rows: 6 + ch <= 16); the plain versions take any count.
 """
 from __future__ import annotations
 
@@ -30,7 +32,9 @@ PIX = TILE * TILE
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
-CH = 5  # channels of the slice's renders: r, g, b, z, z^2
+CH = 5  # channels of the SLAM loop's renders: r, g, b, z, z^2
+MAX_CH = 10  # the most channels K1 and K2 take (composite_pallas.py:51, ATTR_W = 16 rows)
+CHANNELS = tuple(range(1, MAX_CH + 1))
 
 
 def to_tiles(img: torch.Tensor) -> torch.Tensor:
@@ -288,15 +292,26 @@ def composite_forward_plain(attrs, pair_gauss, tile_start, width: int, height: i
                                  width, height, cull)
 
 
+def check_channels(ch: int, name: str = "channels") -> None:
+    """Raise a ValueError unless K1 and K2 take ch channels (1 to MAX_CH)."""
+    if not 1 <= ch <= MAX_CH:
+        raise ValueError(f"{name}: the compositing kernels take 1 to {MAX_CH} channels "
+                         f"(6 + ch <= 16 attribute rows, as the TPU kernels), got {ch}")
+
+
 def _check_rows(attrs, pair_gauss, tile_start, width, height):
-    """Validate K1/K2 inputs; returns (grid_x, grid_y, pair count)."""
+    """Validate K1/K2 inputs; returns (channels, grid_x, grid_y, pair
+    count). The channel count is attrs' width less the six geometry
+    columns."""
     gx, gy = grid_shape(width, height)
-    _cuda.require(attrs, "attrs", torch.float32, (None, 6 + CH))
+    ch = attrs.shape[-1] - 6 if attrs.dim() == 2 else 0
+    check_channels(ch, "attrs")
+    _cuda.require(attrs, "attrs", torch.float32, (None, 6 + ch))
     if pair_gauss is not None:
         _cuda.require(pair_gauss, "pair_gauss", torch.int32, (None,))
     _cuda.require(tile_start, "tile_start", torch.int32, (gx * gy + 1,))
     n_pairs = attrs.shape[0] if pair_gauss is None else pair_gauss.shape[0]
-    return gx, gy, n_pairs
+    return ch, gx, gy, n_pairs
 
 
 def _ptr(t):
@@ -306,21 +321,23 @@ def _ptr(t):
 def composite_forward(attrs, pair_gauss, tile_start, width: int, height: int):
     """K1 wrapper (forward only): [ch + 2, H, W] from per-Gaussian attrs
     and pair_gauss, or from per-pair rows with pair_gauss None; see
-    composite_forward_plain. CUDA tensors launch the kernel; CPU tensors
-    take the plain version."""
+    composite_forward_plain. CUDA tensors launch the kernel's instance at
+    ch = attrs' width - 6 channels (1 to MAX_CH, else ValueError); CPU
+    tensors take the plain version. `launches` counts each instance's
+    launches, by channel count."""
     if not attrs.is_cuda:
         return composite_forward_plain(attrs, pair_gauss, tile_start, width, height)
-    gx, gy, _ = _check_rows(attrs, pair_gauss, tile_start, width, height)
-    out = torch.empty((CH + 2, height, width), dtype=torch.float32, device=attrs.device)
-    err = _cuda.lib().composite_forward_ch5(
-        attrs.data_ptr(), _ptr(pair_gauss), tile_start.data_ptr(),
+    ch, gx, gy, _ = _check_rows(attrs, pair_gauss, tile_start, width, height)
+    out = torch.empty((ch + 2, height, width), dtype=torch.float32, device=attrs.device)
+    err = _cuda.lib().composite_forward(
+        ch, attrs.data_ptr(), _ptr(pair_gauss), tile_start.data_ptr(),
         gx, gy, width, height, out.data_ptr(), _cuda.stream_ptr(attrs))
-    _cuda.check(err, "composite_forward_ch5")
-    composite_forward.launches += 1
+    _cuda.check(err, f"composite_forward (ch {ch})")
+    composite_forward.launches[ch] += 1
     return out
 
 
-composite_forward.launches = 0
+composite_forward.launches = dict.fromkeys(CHANNELS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -341,30 +358,32 @@ def composite_backward(attrs, pair_gauss, tile_start, width: int, height: int, s
     """K2 wrapper: per-pair gradients [P, 6 + ch] in sorted-pair order
     (d x, d y, d conic a, b, c, d opacity, d channels) given K1's output
     `state` [ch + 2, H, W] and cotangents g [ch + 1, H, W] of the channels
-    and the silhouette. Inputs as composite_forward takes them. Every slot
-    is written: pairs no pixel reached get 0."""
+    and the silhouette. Inputs as composite_forward takes them, and so is
+    the instance chosen and counted. Every slot is written: pairs no pixel
+    reached get 0."""
     if not attrs.is_cuda:
         return composite_backward_plain(attrs, pair_gauss, tile_start, width, height, state, g)
-    gx, gy, n_pairs = _check_rows(attrs, pair_gauss, tile_start, width, height)
-    _cuda.require(state, "state", torch.float32, (CH + 2, height, width))
-    _cuda.require(g, "g", torch.float32, (CH + 1, height, width))
-    out = torch.empty((n_pairs, 6 + CH), dtype=torch.float32, device=attrs.device)
-    err = _cuda.lib().composite_backward_ch5(
-        attrs.data_ptr(), _ptr(pair_gauss), tile_start.data_ptr(), gx, gy, width, height,
+    ch, gx, gy, n_pairs = _check_rows(attrs, pair_gauss, tile_start, width, height)
+    _cuda.require(state, "state", torch.float32, (ch + 2, height, width))
+    _cuda.require(g, "g", torch.float32, (ch + 1, height, width))
+    out = torch.empty((n_pairs, 6 + ch), dtype=torch.float32, device=attrs.device)
+    err = _cuda.lib().composite_backward(
+        ch, attrs.data_ptr(), _ptr(pair_gauss), tile_start.data_ptr(), gx, gy, width, height,
         state.data_ptr(), g.data_ptr(), out.data_ptr(), _cuda.stream_ptr(attrs))
-    _cuda.check(err, "composite_backward_ch5")
-    composite_backward.launches += 1
+    _cuda.check(err, f"composite_backward (ch {ch})")
+    composite_backward.launches[ch] += 1
     return out
 
 
-composite_backward.launches = 0
+composite_backward.launches = dict.fromkeys(CHANNELS, 0)
 
 
 # ---------------------------------------------------------------------------
 # K3: segment reduce (per-pair -> per-Gaussian gradient sums)
 # ---------------------------------------------------------------------------
 
-SEGMENT_WIDTHS = (8, 11)  # the fused path's world rows, the generic path's 6 + CH
+# The fused path's world rows (8) and the generic path's 6 + ch (7 to 16)
+SEGMENT_WIDTHS = tuple(range(7, 6 + MAX_CH + 1))
 
 
 def segment_reduce_plain(dpair, dst, offsets, counts):
@@ -392,11 +411,10 @@ def segment_reduce(dpair, dst, offsets, counts):
     _cuda.require(offsets, "offsets", torch.int32, (n,))
     _cuda.require(counts, "counts", torch.int32, (n,))
     out = torch.empty((n, k), dtype=torch.float32, device=dpair.device)
-    name = f"segment_reduce{k}"
-    err = getattr(_cuda.lib(), name)(
-        dpair.data_ptr(), dst.data_ptr(), offsets.data_ptr(), counts.data_ptr(), n,
+    err = _cuda.lib().segment_reduce(
+        k, dpair.data_ptr(), dst.data_ptr(), offsets.data_ptr(), counts.data_ptr(), n,
         out.data_ptr(), _cuda.stream_ptr(dpair))
-    _cuda.check(err, name)
+    _cuda.check(err, f"segment_reduce ({k} columns)")
     segment_reduce.launches[k] += 1
     return out
 
@@ -412,7 +430,8 @@ segment_reduce.launches = dict.fromkeys(SEGMENT_WIDTHS, 0)
 class CompositeGauss(torch.autograd.Function):
     """Per-Gaussian compositing (_composite_core in the JAX package):
     forward K1, backward K2 -> K3, returning d(xy, conic, opacity,
-    channels) per Gaussian. ps is a render.api.PairStructure."""
+    channels) per Gaussian. ps is a render.api.PairStructure. The image
+    is [ch + 1, H, W]: the channels, then the silhouette."""
 
     @staticmethod
     def forward(ctx, xy, conic, opacity, chans, ps, width, height):
@@ -420,7 +439,7 @@ class CompositeGauss(torch.autograd.Function):
         out = composite_forward(attrs, ps.pair_gauss, ps.tile_start, width, height)
         ctx.save_for_backward(attrs, out)
         ctx.ps, ctx.wh = ps, (width, height)
-        return out[:CH + 1]
+        return out[:chans.shape[1] + 1]
 
     @staticmethod
     def backward(ctx, g):
@@ -443,7 +462,7 @@ class CompositePairs(torch.autograd.Function):
         out = composite_forward(rows, None, tile_start, width, height)
         ctx.save_for_backward(rows, tile_start, out)
         ctx.wh = (width, height)
-        return out[:CH + 1]
+        return out[:rows.shape[1] - 5]
 
     @staticmethod
     def backward(ctx, g):

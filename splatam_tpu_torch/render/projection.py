@@ -54,9 +54,14 @@ def _cov3d_components(quats, scales):
 
 
 def project(means3d, quats, logit_opacities, scales, active, w2c,
-            fx, fy, cx, cy, width: int, height: int):
+            fx, fy, cx, cy, width: int, height: int, lim_wh: tuple | None = None):
     """EWA-project all Gaussians; means3d in the frame w2c maps from,
-    scales [N, 3]. Returns (Projected, ProjectedAux)."""
+    scales [N, 3]. Returns (Projected, ProjectedAux).
+
+    lim_wh: the (width, height) of the 1.3 * tan(fov) frustum clamp where
+    it differs from the image's (a render of one band of a larger image
+    passes the full image's, so the 2D covariances are the full render's
+    while the tile grid is the band's)."""
     rot3 = w2c[:3, :3]
     p_view = means3d @ rot3.T + w2c[:3, 3]
     tz = p_view[:, 2]
@@ -80,8 +85,9 @@ def project(means3d, quats, logit_opacities, scales, active, w2c,
     def _vrk(i, j):
         return sum(wsig[i][k] * rot3[j, k] for k in range(3))
 
-    limx = 1.3 * (width / (2.0 * fx))
-    limy = 1.3 * (height / (2.0 * fy))
+    lim_w, lim_h = lim_wh if lim_wh is not None else (width, height)
+    limx = 1.3 * (lim_w / (2.0 * fx))
+    limy = 1.3 * (lim_h / (2.0 * fy))
     txtz = torch.clamp(p_view[:, 0] / safe_tz, -limx, limx)
     tytz = torch.clamp(p_view[:, 1] / safe_tz, -limy, limy)
     tx = txtz * safe_tz

@@ -13,30 +13,47 @@ import torch
 from splatam_tpu_torch.render import composite, fused_iso, probes
 from splatam_tpu_torch.utils.device import require_device
 
+def wide_launch_counts() -> dict:
+    """Launches of the width instances beside the SLAM loop's (K1 and K2 at
+    five channels, K3 at 8 and 11 columns): K1 and K2 at every other channel
+    count, K3 at every other width of the generic render's rows."""
+    fwd, bwd = composite.composite_forward.launches, composite.composite_backward.launches
+    others = [c for c in composite.CHANNELS if c != composite.CH]
+    return {**{f"composite_forward_ch{c}": fwd[c] for c in others},
+            **{f"composite_backward_ch{c}": bwd[c] for c in others},
+            **{f"segment_reduce{k}": composite.segment_reduce.launches[k]
+               for k in composite.SEGMENT_WIDTHS if k not in (8, 11)}}
+
+
+WIDE = tuple(wide_launch_counts())
 # Every hand-written kernel of the port, by the name chip_smoke.py reports.
 KERNELS = ("composite_forward", "composite_backward", "fused_forward", "fused_backward",
            "segment_reduce", "segment_reduce11", "fwd2", "dma_only", "dma_b2", "dma_b4",
-           "math_only")
+           "math_only", *WIDE)
 SHORT = {"composite_forward": "K1", "composite_backward": "K2", "fused_forward": "K4",
-         "fused_backward": "K5", "segment_reduce": "K3-8", "segment_reduce11": "K3-11"}
+         "fused_backward": "K5", "segment_reduce": "K3-8", "segment_reduce11": "K3-11",
+         **{n: n.replace("composite_forward_", "K1-").replace("composite_backward_", "K2-")
+            .replace("segment_reduce", "K3-") for n in WIDE}}
 
 
 def launch_counts() -> dict:
     by_width, by_block = composite.segment_reduce.launches, probes.dma_walk.launches
-    return {"composite_forward": composite.composite_forward.launches,
-            "composite_backward": composite.composite_backward.launches,
+    return {"composite_forward": composite.composite_forward.launches[composite.CH],
+            "composite_backward": composite.composite_backward.launches[composite.CH],
             "fused_forward": fused_iso.fused_forward.launches,
             "fused_backward": fused_iso.fused_backward.launches,
             "segment_reduce": by_width[8], "segment_reduce11": by_width[11],
             "fwd2": probes.fwd2.launches, "dma_only": by_block[1], "dma_b2": by_block[2],
-            "dma_b4": by_block[4], "math_only": probes.math_only.launches}
+            "dma_b4": by_block[4], "math_only": probes.math_only.launches,
+            **wide_launch_counts()}
 
 
 def reset_launch_counts() -> None:
-    for fn in (composite.composite_forward, composite.composite_backward,
-               fused_iso.fused_forward, fused_iso.fused_backward, probes.fwd2,
+    for fn in (fused_iso.fused_forward, fused_iso.fused_backward, probes.fwd2,
                probes.math_only):
         fn.launches = 0
+    for fn in (composite.composite_forward, composite.composite_backward):
+        fn.launches = dict.fromkeys(composite.CHANNELS, 0)
     composite.segment_reduce.launches = dict.fromkeys(composite.SEGMENT_WIDTHS, 0)
     probes.dma_walk.launches = dict.fromkeys(probes.DMA_BLOCKS, 0)
 

@@ -24,13 +24,13 @@ from test_torch_cull import H as ROWS_H, W as ROWS_W, _projected_rows, _world_fa
 CSRC = Path(bounds.__file__).resolve().parents[1] / "csrc"
 # (file, device function) -> sha256 prefix of the text the counts were made from
 COUNTED = {
-    ("common.cuh", "composite_pair"): "06abd6ae07b31167",
-    ("common.cuh", "walk_words"): "4d9a0be849894d8e",
+    ("common.cuh", "composite_pair"): "f5f431d8eb054e25",
+    ("common.cuh", "walk_words"): "e723ffb24a4bd36d",
     ("common.cuh", "project_iso"): "6ceb4c90acf8407e",
-    ("common.cuh", "ProjectedRows"): "a865b6809008dd46",
-    ("common.cuh", "stage_values"): "e98719a8069695f1",
-    ("common.cuh", "stage_pair"): "12dd64095d1f7438",
-    ("composite_backward.cu", "composite_backward_kernel"): "bc0eeaaee2074f75",
+    ("common.cuh", "ProjectedRows"): "d5c930dee7acb1ff",
+    ("common.cuh", "stage_values"): "4528f9134b7d00ed",
+    ("common.cuh", "stage_pair"): "7e13d6435c796ddd",
+    ("composite_backward.cu", "composite_backward_kernel"): "bd33dcc8bf766e27",
     ("fused_backward.cu", "fused_backward_kernel"): "80fe3a0bf7d58e41",
     ("fused_backward.cu", "chain_to_world"): "6660f7970abd6bb6",
 }

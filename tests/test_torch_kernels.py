@@ -11,7 +11,9 @@ kernels round like their plain versions; a flipped threshold would move
 a pixel by a whole pair's contribution); per-pair gradients within 1e-4
 (per-pixel terms summed by warp shuffles instead of in pixel order);
 per-Gaussian sums within 1e-5 (the same few terms in another order), at
-8 and at 11 columns. K1 and K2 on per-pair rows must equal their
+every width 7 to 16. K1, K2 and K3 are held so at every channel count 1
+to 10, and render_gaussians through them to its naive and tiles backends
+on the card. K1 and K2 on per-pair rows must equal their
 per-Gaussian mode bit for bit (the same kernel reads the same floats).
 The fused forward's probe kernels run on the probe scripts' map at 64x48
 (~500 pairs per tile): fwd2 must equal K4 bit for bit, math_only its
@@ -94,10 +96,10 @@ def test_composite_forward_kernel_matches_plain(cuda):
     d = proj.depth[:, None]
     attrs = torch.cat([proj.xy, proj.conic, proj.opacity[:, None], gm.rgb_colors, d, d * d], 1)
     attrs = attrs.contiguous()
-    before = composite.composite_forward.launches
+    before = composite.composite_forward.launches[composite.CH]
     got = composite.composite_forward(attrs, b.pair_gauss, b.tile_start, CAM.width, CAM.height)
     torch.cuda.synchronize()
-    assert composite.composite_forward.launches == before + 1
+    assert composite.composite_forward.launches[composite.CH] == before + 1
     ref = composite.composite_forward_plain(attrs, b.pair_gauss, b.tile_start, CAM.width,
                                             CAM.height)
     _check_image(got, ref)
@@ -124,15 +126,86 @@ def _generic_inputs(device, seed):
 
 def test_composite_backward_kernel_matches_plain(cuda):
     attrs, b, state, g = _generic_inputs(cuda, 6)
-    before = composite.composite_backward.launches
+    before = composite.composite_backward.launches[composite.CH]
     got = composite.composite_backward(attrs, b.pair_gauss, b.tile_start, CAM.width,
                                        CAM.height, state, g)
     torch.cuda.synchronize()
-    assert composite.composite_backward.launches == before + 1
+    assert composite.composite_backward.launches[composite.CH] == before + 1
     ref = composite.composite_backward_plain(attrs, b.pair_gauss, b.tile_start, CAM.width,
                                              CAM.height, state, g)
     assert got.shape == (b.n_pairs, 11) and bool(torch.isfinite(got).all())
     assert _rel(got, ref) <= 1e-4
+
+
+def _channels_inputs(device, ch, seed):
+    """The generic render's kernel inputs at ch channels (seeded channels
+    on an anisotropic map), K1's state and seeded cotangents g [ch + 1, H, W]."""
+    attrs5, b, _, _ = _generic_inputs(device, seed)
+    gen = torch.Generator(device).manual_seed(seed)
+    chans = torch.rand((attrs5.shape[0], ch), device=device, generator=gen)
+    attrs = torch.cat([attrs5[:, :6], chans], 1).contiguous()
+    state = composite.composite_forward(attrs, b.pair_gauss, b.tile_start, CAM.width, CAM.height)
+    g = torch.randn((ch + 1, CAM.height, CAM.width), device=device, generator=gen)
+    return attrs, b, state, g
+
+
+@pytest.mark.parametrize("ch", composite.CHANNELS)
+def test_every_channel_count_matches_plain(cuda, ch):
+    """K1, K2 and K3 at ch channels (6 + ch columns) against their plain
+    versions: K1 bit for bit, K2 within 1e-4 and K3 within 1e-5 per column,
+    K2 and K3 equal across two launches, per-pair rows equal to
+    per-Gaussian ones; each launch counted at its own width only."""
+    attrs, b, state, g = _channels_inputs(cuda, ch, 20 + ch)
+    w, h = CAM.width, CAM.height
+    fwd = dict(composite.composite_forward.launches)
+    bwd = dict(composite.composite_backward.launches)
+    red = dict(composite.segment_reduce.launches)
+    k1 = composite.composite_forward(attrs, b.pair_gauss, b.tile_start, w, h)
+    k2 = composite.composite_backward(attrs, b.pair_gauss, b.tile_start, w, h, state, g)
+    k3 = composite.segment_reduce(k2, b.dst, b.offsets, b.counts)
+    torch.cuda.synchronize()
+    assert k1.shape == (ch + 2, h, w) and k2.shape == (b.n_pairs, 6 + ch)
+    assert torch.equal(k1, state)
+    assert torch.equal(k1, composite.composite_forward_plain(attrs, b.pair_gauss, b.tile_start,
+                                                             w, h))
+    assert _rel(k2, composite.composite_backward_plain(attrs, b.pair_gauss, b.tile_start, w, h,
+                                                       state, g)) <= 1e-4
+    assert _rel(k3, composite.segment_reduce_plain(k2, b.dst, b.offsets, b.counts)) <= 1e-5
+    assert torch.equal(k2, composite.composite_backward(attrs, b.pair_gauss, b.tile_start, w, h,
+                                                        state, g))
+    assert torch.equal(k3, composite.segment_reduce(k2, b.dst, b.offsets, b.counts))
+    rows = attrs[b.pair_gauss.long()].contiguous()
+    assert torch.equal(composite.composite_forward(rows, None, b.tile_start, w, h), k1)
+    assert torch.equal(composite.composite_backward(rows, None, b.tile_start, w, h, state, g), k2)
+    moved = lambda now, before: {k: now[k] - before[k] for k in now if now[k] != before[k]}
+    assert moved(composite.composite_forward.launches, fwd) == {ch: 2}
+    assert moved(composite.composite_backward.launches, bwd) == {ch: 3}
+    assert moved(composite.segment_reduce.launches, red) == {6 + ch: 2}
+
+
+@pytest.mark.parametrize("n_colors,append", [(3, False), (8, True)])
+def test_render_gaussians_on_the_card_matches_the_references(cuda, n_colors, append):
+    """render_gaussians through K1 -> K2 -> K3 (kernel ch 3 and 10) against
+    its naive and tiles backends on the card: images within 1e-4,
+    gradients within 5e-5 of the largest magnitude (the JAX suite's)."""
+    gm = _map(cuda, n=2000, seed=n_colors)
+    gen = torch.Generator(cuda).manual_seed(n_colors)
+    colors = torch.rand((gm.capacity, n_colors), device=cuda, generator=gen)
+    rows = n_colors + (3 if append else 0)
+    w = torch.randn((rows, CAM.height, CAM.width), device=cuda, generator=gen)
+    out = {}
+    for backend in ("auto", "naive", "tiles"):
+        params = [x.clone().requires_grad_(True) for x in
+                  (gm.means3d, colors, gm.unnorm_rotations, gm.logit_opacities, gm.log_scales)]
+        img, _, _ = api.render_gaussians(CAM, *params, gm.active, backend=backend,
+                                         append_depth_channels=append)
+        out[backend] = (img.detach(), torch.autograd.grad((img * w).sum(), params))
+    img_a, grads_a = out["auto"]
+    for backend in ("naive", "tiles"):
+        img, grads = out[backend]
+        assert float((img - img_a).abs().max()) <= 1e-4
+        for mine, ref in zip(grads, grads_a):
+            assert float((mine - ref).abs().max()) <= 5e-5 * float(ref.abs().max())
 
 
 def test_per_pair_mode_equals_per_gaussian_mode(cuda):
@@ -237,10 +310,11 @@ def test_wrappers_reject_bad_arguments(cuda):
         fused_iso.fused_forward(w8, pose, ts, CAM.width, CAM.height)
     with pytest.raises(ValueError, match="tile_start"):
         fused_iso.fused_forward(w8.float(), pose, ts[:-1], CAM.width, CAM.height)
-    with pytest.raises(ValueError, match="attrs"):
-        composite.composite_backward(w8.float(), None, ts, CAM.width, CAM.height, None, None)
+    with pytest.raises(ValueError, match="attrs: the compositing kernels take 1 to 10"):
+        composite.composite_backward(torch.zeros((4, 17), device=cuda), None, ts, CAM.width,
+                                     CAM.height, None, None)
     with pytest.raises(ValueError, match="columns"):
-        composite.segment_reduce(torch.zeros((4, 9), device=cuda), ts[:4], ts[:1], ts[:1])
+        composite.segment_reduce(torch.zeros((4, 17), device=cuda), ts[:4], ts[:1], ts[:1])
 
 
 @pytest.mark.parametrize("logit", [-2.0, 1.0])
