@@ -58,9 +58,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      Gaussians (about path 1's steady map): wall, event and device-busy
      time of each stage;
  11. path 4: the full online entry point, `rgbd_slam`, on path 1's
-     configuration for 7 frames with a checkpoint every 3 frames, in a
-     temporary directory: (a) the run (K1, K4, K5 and K3 at 8 columns
-     launched, K2, K3 at 11 and the probes not; finite poses; params.npz,
+     configuration for 7 frames with a checkpoint every 3 frames and
+     tracking.visualize_tracking_loss on, in a temporary directory: (a) the
+     run (K1, K4, K5 and K3 at 8 columns launched, K2, K3 at 11 and the
+     probes not; K1 exactly PATH4_K1 times, one of them the panel of each
+     tracked frame; one panel PNG per tracked frame, read back by read_png
+     at its size; finite poses; params.npz,
      params3.npz, params6.npz and keyframe_time_indices3.npy with the JAX
      package's keys; keyframes 0, 4 and 5, the last the num_frames - 2 one;
      finite PSNR, MS-SSIM, LPIPS, depth and ATE); (b) `eval_sequence` again
@@ -79,7 +82,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      `...scripts.eval_novel_view configs/replica_v2/eval_novel_view.py` on
      its params.npz (the NVS split, K1 alone); the loader's host time per
      frame and the image reader it uses; path 6, `configs/tum/splatam.py`
-     at 640x480 on a TUM freiburg1_desk tree (5 frames, timestamp files,
+     at 640x480 on a TUM freiburg1_desk tree (3 frames, timestamp files,
      depth and ground truth on stamps of their own) the same way, and
      read_png's time on a Paeth-filtered 640x480 16-bit depth image; path
      7a, `configs/replica/splatam_s.py` pointed at path 5's tree (tracking
@@ -92,9 +95,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      `configs/replica/gaussian_splatting.py` as written (init 300x170,
      mapping 600x340, anisotropic, its densify_dict) on path 5's tree
      through `python -m splatam_tpu_torch.scripts.gaussian_splatting`, cut
-     to 1,500 iterations with its intermediate eval at 1,000; path 9,
+     to 1,200 iterations with its intermediate eval at 1,000; path 9,
      `configs/replica/post_splatam_opt.py` as written on path 5's tree and
-     params.npz, cut to 1,000 iterations: K1, K2 and K3-11 launched and no
+     params.npz, cut to 700 iterations: K1, K2 and K3-11 launched and no
      other kernel, K2 once per training iteration, a densify pass that
      cloned or split, eval_1k/ (path 8) and eval/ written, finite quality,
      params.npz with [N, 3] log-scales (path 8; path 9 keeps the
@@ -103,7 +106,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      in-loop 3DGS (`mapping.use_gaussian_splatting_densification`), 4
      frames: K4 and K5 (tracking) and K1, K2 and K3-11 (mapping on the
      generic render, K2 once per mapping iteration), K3-8 never. Each prints
-     its wall time, ms per training iteration and peak memory. Then, in
+     its wall time, ms per training iteration and peak memory. After path
+     9, path 5's own params.npz evaluated at path 9's settings (frame 0 at
+     600x340) beside path 9's metrics. Then, in
      this process, K1, K2 and K3-11 on the inputs each trained map gives
      them (paths 8 and 9: params.npz at its 600x340 mapping camera and last
      pose; path 10: the final map at its last pose, with K4, K5 and K3-8
@@ -123,12 +128,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
      index_add_'s time; then at 160x120 on an anisotropic map of 2,000
      Gaussians the kernels against the naive and tiles backends on the
      card (ch 3 and 10: images within 1e-4, gradients within 5e-5 of their
-     largest);
+     largest), the naive backend once in its exact-depth order and once in
+     the kernels' quantized-depth order;
  15. path 12, the viewers: `python -m splatam_tpu_torch.scripts.final_recon`
      and `...online_recon` in processes of their own on path 4's run
      directory (configs/synthetic/splatam.py's viz section, 600x340): 24
      orbit views through 24 K1 launches, one replay frame per frame, and
-     view 0 decoded with read_png equal to render_view's uint8 here.
+     view 0 decoded with read_png equal to render_view's uint8 here;
+ 16. path 13, the micro-gauntlets as gates (scripts/gauntlet.py MICRO,
+     through its run_variant: clean, 30 frames at 160x120, ATE < 3.3 cm and
+     PSNR >= 35 dB; scan, 39 frames at motion_scale 1.0, < 1.8 cm and >= 37
+     dB; rebin 8, 60/60 iterations): path 1's routing, a breached floor
+     fails; then K1, K4, K5 and K3-8 on the clean run's final map at
+     160x120 against their plain versions;
+ 17. path 14, the live iPhone path: configs/iphone/online_demo.py as written
+     (1920x1440 samples, downscale 2 -> 960x720, 10 frames, 60/60
+     iterations, window 32, rebin 1) through `live_slam` on a replayed
+     NeRFCapture stream of the synthetic scene (uint8 RGB, float32 depth
+     bytes at 256x192, an OpenGL transform_matrix; an empty read and a
+     sample without depth among them; ray-cast before the run): K1, K2 and
+     K3-11 only, K2 once per tracking and mapping iteration; s/frame, ATE
+     against the served poses, Gaussians; K1, K2 and K3-11 on its final map
+     at 960x720 against their plain versions; then `dataset_capture_loop`
+     on the same samples, read back by configs/iphone/splatam.py's loader
+     equal to the served frames within the uint16 depth step.
 A device-busy time (phases 6, 7, 10) counts only where torch.profiler
 recorded every launch of the port's kernels that the wrappers counted in
 its window; elsewhere it prints as unverified.
@@ -163,12 +186,15 @@ FRAMES_SLAM, CKPT_EVERY = 7, 3  # path 4: checkpoints at frames 0, 3 and 6
 SLAM_KEYFRAMES = [0, 4, 5]  # keyframe_every=5, and num_frames - 2
 RESUME_AT = 3
 FRAMES_REPLICA, NVS_FRAMES = 6, 3  # paths 5 and 7a: the Replica-V2 tree's train and held-out frames
-FRAMES_TUM = 5  # path 6
+FRAMES_TUM = 3  # path 6
 FRAMES_C2F = 4  # path 7b
 FRAMES_GS_LOOP = 4  # path 10
+# Path 14: the iPhone's depth image is coarser than its colour (256x192 under
+# 1920x1440 on the LiDAR phones).
+PHONE_DEPTH_HW = (192, 256)
 # Paths 8 and 9: the configs' only cuts, of depth (their iterations; the
 # frame counts to what path 5's tree holds).
-GS_ITERS, GS_EVAL_AT, POST_ITERS = 1500, [1000], 1000
+GS_ITERS, GS_EVAL_AT, POST_ITERS = 1200, [1000], 700
 # Path 10: configs/synthetic/splatam.py's densify_dict, with a schedule that
 # fires within the loop's 60 mapping iterations a frame (its own
 # start_after=500 never would).
@@ -289,6 +315,13 @@ PATH_KERNELS = {
     "path 4": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
                ("composite_backward", "segment_reduce11", *PROBES)),
     "path 4 eval": EVAL,
+    # the micro-gauntlets run path 1's routing (rebin 8, isotropic) at 160x120
+    "path 13 clean": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
+                      ("composite_backward", "segment_reduce11", *PROBES)),
+    "path 13 scan": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
+                     ("composite_backward", "segment_reduce11", *PROBES)),
+    # the iPhone config's generic render (rebin_every=1) every iteration
+    "path 14": GENERIC,
     "path 5": GENERIC,
     "path 5 nvs": EVAL,
     "path 6": GENERIC,
@@ -307,6 +340,10 @@ PATH_KERNELS = {
 }
 # No path but path 11 launches K1, K2 or K3 at another width.
 PATH_KERNELS = {k: (must, (*never, *WIDE)) for k, (must, never) in PATH_KERNELS.items()}
+# Path 4's K1 launches, exactly: the progress report at frame 0, at each
+# tracked frame densification and the tracking-loss panel (one render at the
+# tracked pose), and the final eval of every frame (eval_every 1).
+PATH4_K1 = 1 + 2 * (FRAMES_SLAM - 1) + FRAMES_SLAM
 
 
 def fail(msg: str) -> None:
@@ -433,7 +470,7 @@ def check_trained_map(gm, q, t, cam, label: str, names=GENERIC[0]) -> None:
     torch.cuda.empty_cache()
 
 
-def check_trained_params(params: dict, label: str, device) -> None:
+def check_trained_params(params: dict, label: str, device, names=GENERIC[0]) -> None:
     """check_trained_map on a params.npz: its map at its mapping camera
     (org_width x org_height, its intrinsics) and its last frame's pose."""
     import numpy as np
@@ -448,7 +485,7 @@ def check_trained_params(params: dict, label: str, device) -> None:
     q = torch.as_tensor(np.asarray(params["cam_unnorm_rots"], np.float32)[0, :, -1],
                         device=device)
     t = torch.as_tensor(np.asarray(params["cam_trans"], np.float32)[0, :, -1], device=device)
-    check_trained_map(gm, q, t, cam, f"{label} trained")
+    check_trained_map(gm, q, t, cam, f"{label} trained", names)
 
 
 def probe_cases(ps, pose, w: int, h: int):
@@ -1116,6 +1153,29 @@ def eval_split(config, params: dict, device) -> None:
           f"Gaussians: " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()), flush=True)
 
 
+def check_panels(run: str, config: dict) -> None:
+    """tracking.visualize_tracking_loss wrote one panel PNG per tracked frame
+    (1..n-1), each read back by read_png: the 2x4 grid of full-size panels
+    where matplotlib does not import (this machine), else the figure."""
+    from splatam_tpu_torch.data.png import read_png
+
+    try:
+        import matplotlib  # noqa: F401
+        grid = None
+    except ImportError:
+        data = config["data"]
+        grid = (2 * data["desired_image_height"], 4 * data["desired_image_width"])
+    viz = os.path.join(run, "tracking_loss_viz")
+    names = sorted(os.listdir(viz)) if os.path.isdir(viz) else []
+    want = [f"{t:04d}.png" for t in range(1, FRAMES_SLAM)]
+    shapes = [read_png(os.path.join(viz, n)).shape for n in names]
+    ok = names == want and all(grid is None or sh[:2] == grid for sh in shapes)
+    print(f"path 4 tracking-loss panels: {names}, shapes {sorted(set(shapes))} "
+          f"(expected {grid or 'matplotlib figures'}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"path 4: tracking-loss panels {names} of shapes {shapes}")
+
+
 def drive_slam(work: str, device, card: str) -> dict:
     """Path 4 (a)-(d), see the module docstring. Returns the launch counts
     of the run, its eval and its resume."""
@@ -1131,7 +1191,8 @@ def drive_slam(work: str, device, card: str) -> dict:
     from splatam_tpu_torch.slam.pipeline import rgbd_slam
 
     config = bench_config(work, data={"num_frames": FRAMES_SLAM}, save_checkpoints=True,
-                          checkpoint_interval=CKPT_EVERY, run_name="path4")
+                          checkpoint_interval=CKPT_EVERY, run_name="path4",
+                          tracking={"visualize_tracking_loss": True})
     run = _run_dir(config)
     launches = {}
 
@@ -1145,6 +1206,9 @@ def drive_slam(work: str, device, card: str) -> dict:
     wall = time.time() - t0
     launches["path 4"] = launch_counts()
     check_launches("path 4", launches["path 4"])
+    if launches["path 4"]["composite_forward"] != PATH4_K1:
+        fail(f"path 4: {launches['path 4']['composite_forward']} K1 launches, expected {PATH4_K1}")
+    check_panels(run, config)
     params = _load_params(os.path.join(run, "params.npz"), "path 4")
     for t in range(0, FRAMES_SLAM, CKPT_EVERY):
         _load_params(os.path.join(run, f"params{t}.npz"), "path 4")
@@ -1509,10 +1573,38 @@ def drive_training(real: str, work: str, device, card: str) -> dict:
     if not same:
         fail("path 9: the poses differ from the checkpoint's")
     check_trained_params(params, "path 9", device)
-    del params, src
+    del params
+    split_path9_eval(real, exp, dict(src), metrics, device)
+    del src
     torch.cuda.empty_cache()
     launches["path 10"] = drive_gs_loop(work, device, card)
     return launches
+
+
+def split_path9_eval(real: str, exp: str, params5: dict, metrics9: dict, device) -> None:
+    """Path 5's own params.npz evaluated at path 9's settings (its eval
+    dataset: the tree at 600x340 with eval_stride, frame 0), beside path 9's
+    metrics: says whether the PSNR gap between paths 5 and 9 belongs to the
+    evaluation or to post_splatam_opt."""
+    from splatam_tpu_torch.eval.evaluate import eval_sequence
+    from splatam_tpu_torch.scripts.gaussian_splatting import _build_dataset
+    from splatam_tpu_torch.slam.config import load_experiment_config
+
+    with working_dir(real):
+        config = load_experiment_config(exp)
+        data, train = config["data"], config["train"]
+        h, w = data["desired_image_height"], data["desired_image_width"]
+        eval_ds = _build_dataset(config, h, w, stride=data.get("eval_stride", 1))
+        m5 = eval_sequence(eval_ds, params5, len(eval_ds), os.path.join(real, "eval_path5_at9"),
+                           sil_thres=train["sil_thres"], mapping_iters=POST_ITERS,
+                           add_new_gaussians=True, eval_every=config.get("eval_every", 1),
+                           device=device, save_plots=False)
+    print(f"path 9 eval split: path 5's params.npz at path 9's evaluation ({len(eval_ds)} "
+          f"frame(s) at {w}x{h}, eval_stride {data.get('eval_stride')}): PSNR {m5['psnr']:.4f} "
+          f"dB, depth L1 {100 * m5['depth_l1']:.4f} cm; path 9's trained map there: PSNR "
+          f"{metrics9['psnr']:.4f} dB, depth L1 {100 * metrics9['depth_l1']:.4f} cm", flush=True)
+    if not all(math.isfinite(m5[k]) for k in ("psnr", "depth_l1")):
+        fail(f"path 9 eval split: a metric is not finite: {m5}")
 
 
 def drive_gs_loop(work: str, device, card: str) -> dict:
@@ -1722,12 +1814,38 @@ def check_generic_kernels(m, label: str) -> tuple:
     return errs, times, bounds, library
 
 
+@contextlib.contextmanager
+def naive_in_binned_order(cam):
+    """The naive backend ordering its Gaussians by the kernels' depth key
+    (binning.quantized_depth at this image's tile count, ties in index
+    order, as a tile's pairs sort) in place of the exact depth: the same
+    front-to-back order as the kernels within every tile."""
+    from splatam_tpu_torch.render import binning, naive
+
+    gx, gy = binning.grid_shape(cam.width, cam.height)
+    bits = binning.depth_bits_for(gx * gy)
+    exact = naive.composite_naive
+
+    def binned(proj, aux, channels, width, height):
+        key = binning.quantized_depth(proj.depth.detach(), bits).to(proj.depth.dtype)
+        return exact(proj._replace(depth=key), aux, channels, width, height)
+
+    naive.composite_naive = binned
+    try:
+        yield
+    finally:
+        naive.composite_naive = exact
+
+
 def check_references(device) -> None:
     """render_gaussians through the kernels against its naive and tiles
     backends on the card, at 160x120 on an anisotropic map of REFERENCE_N
     Gaussians, at kernel ch 3 (three colours) and 10 (eight colours and
     depth): images within 1e-4, each gradient within 5e-5 of its largest
-    magnitude (the JAX suite's tolerances for its backends)."""
+    magnitude (the JAX suite's tolerances for its backends). The naive
+    backend runs twice: in its exact-depth order, and in the kernels'
+    quantized-depth order (naive_in_binned_order), which splits how much
+    of its distance from the kernels is the order of near-equal depths."""
     import numpy as np
     import torch
 
@@ -1743,18 +1861,22 @@ def check_references(device) -> None:
         rows = n + 3 if append else n
         w = torch.randn((rows, cam.height, cam.width), device=device, generator=gen)
         out = {}
-        for backend in ("auto", "naive", "tiles"):
+        for backend in ("auto", "naive", "naive, binned order", "tiles"):
             leaves = [a.detach().clone().requires_grad_(True)
                       for a in (means, colors, rots, gm.logit_opacities, gm.log_scales)]
+            order = (naive_in_binned_order(cam) if backend == "naive, binned order"
+                     else contextlib.nullcontext())
             torch.cuda.synchronize()
             t0 = time.time()
-            img, _, _ = api.render_gaussians(cam, *leaves, gm.active, backend=backend,
-                                             append_depth_channels=append)
-            grads = torch.autograd.grad((img * w).sum(), leaves)
+            with order:
+                img, _, _ = api.render_gaussians(cam, *leaves, gm.active,
+                                                 backend=backend.partition(",")[0],
+                                                 append_depth_channels=append)
+                grads = torch.autograd.grad((img * w).sum(), leaves)
             torch.cuda.synchronize()
             out[backend] = (img.detach(), grads, time.time() - t0)
         img_a, grads_a, _ = out["auto"]
-        for backend in ("naive", "tiles"):
+        for backend in ("naive", "naive, binned order", "tiles"):
             img, grads, secs = out[backend]
             img_err = float((img - img_a).abs().max())
             grad_rel = [float((g - r).abs().max() / r.abs().max().clamp_min(1e-30))
@@ -1811,6 +1933,188 @@ def drive_viewers(work: str, device) -> dict:
           f"uint8 here={same}", flush=True)
     if not same:
         fail("path 12: final_recon's view 0 differs from render_view in this process")
+    return launches
+
+
+def drive_gauntlet(work: str, device, card: str) -> dict:
+    """Path 13: the micro-gauntlets (scripts/gauntlet.py MICRO: clean, 30
+    frames, and scan, 39 frames at motion_scale 1.0, both 160x120, rebin 8,
+    60/60 iterations) through the port's run_variant, as gates: a breached
+    floor fails. Then K1, K4, K5 and K3-8 on the clean run's final map at
+    160x120 (7.5 tile rows) against their plain versions. Returns the
+    launch counts."""
+    import torch
+
+    from splatam_tpu_torch.scripts import gauntlet
+    from splatam_tpu_torch.scripts.harness import launch_counts, reset_launch_counts
+
+    workdir = os.path.join(work, "gauntlet")
+    launches = {}
+    for name, micro in gauntlet.MICRO.items():
+        label = f"path 13 {name}"
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        m = gauntlet.run_micro(name, workdir, device)
+        torch.cuda.synchronize()
+        launches[label] = launch_counts()
+        check_launches(label, launches[label])
+        report_quality(label, m, card)
+        ate = 100 * m["ate_rmse"]
+        print(f"[{label}] {micro['frames']} frames at {gauntlet.MICRO_HW[1]}x"
+              f"{gauntlet.MICRO_HW[0]}: ATE {ate:.4f} cm (floor < {micro['ate_cm']}), PSNR "
+              f"{m['psnr']:.4f} dB (floor >= {micro['psnr']}), {m['wall_s']} s with its eval "
+              f"-> {'PASS' if m['pass'] else 'FAIL'} ({card})", flush=True)
+        if not m["pass"]:
+            fail(f"{label}: a micro-gauntlet floor broke (ATE {ate:.4f} cm, PSNR "
+                 f"{m['psnr']:.4f} dB)")
+    params = _load_params(os.path.join(workdir, "gauntlet_clean", "params.npz"), "path 13 clean")
+    check_trained_params(params, "path 13 clean", device,
+                         names=("composite_forward", "fused_forward", "fused_backward",
+                                "segment_reduce"))
+    return launches
+
+
+def live_stream(config: dict) -> list:
+    """Path 14's NeRFCapture stream: the synthetic scene at the config's full
+    resolution (its size times downscale_factor), one frame per
+    data.num_frames, depth at PHONE_DEPTH_HW, with an empty read after the
+    first sample and a sample without depth after the second. The frames
+    are ray-cast here, in threads, before any timing."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from splatam_tpu_torch.data.imgproc import resize_nearest
+    from splatam_tpu_torch.data.synthetic import SyntheticDataset
+    from splatam_tpu_torch.live.replay import to_sample
+
+    data = config["data"]
+    n = data["num_frames"]
+    h = int(data["desired_image_height"] * data["downscale_factor"])
+    w = int(data["desired_image_width"] * data["downscale_factor"])
+    ds = SyntheticDataset(num_frames=n, height=h, width=w)
+    t0 = time.time()
+    with ThreadPoolExecutor(8) as ex:
+        frames = list(ex.map(ds.__getitem__, range(n)))
+    samples = [to_sample(i, c, resize_nearest(d[..., 0], *PHONE_DEPTH_HW), k, p)
+               for i, (c, d, k, p) in enumerate(frames)]
+    c, _, k, p = frames[-1]
+    print(f"path 14 stream: {n} frames at {w}x{h}, depth {PHONE_DEPTH_HW[1]}x"
+          f"{PHONE_DEPTH_HW[0]}, ray-cast in {time.time() - t0:.1f} s before the run", flush=True)
+    return [samples[0], None, samples[1], to_sample(n, c, None, k, p), *samples[2:]]
+
+
+def drive_live(work: str, device, card: str) -> dict:
+    """Path 14: configs/iphone/online_demo.py as written (1920x1440 samples,
+    downscale 2 -> 960x720, 10 frames, 60/60 iterations, window 32, rebin 1)
+    through live_slam on a replayed stream (live_stream): K1, K2 and K3-11
+    launched, K2 once per tracking and mapping iteration, the fused kernels
+    never; s/frame, ATE against the served poses, the Gaussian count; K1,
+    K2 and K3-11 on its final map at 960x720 against their plain versions;
+    then nerfcapture2dataset's loop on the same samples, read back through
+    configs/iphone/splatam.py's loader: equal to the served frames within
+    the PNG depth quantisation. Returns the launch counts."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from splatam_tpu_torch.data import dataset_from_config
+    from splatam_tpu_torch.data.imgproc import resize_linear
+    from splatam_tpu_torch.eval.ate import evaluate_ate
+    from splatam_tpu_torch.live.replay import SampleReader
+    from splatam_tpu_torch.scripts import iphone_demo, nerfcapture2dataset
+    from splatam_tpu_torch.scripts.harness import launch_counts, reset_launch_counts
+    from splatam_tpu_torch.slam.config import load_experiment_config, seed_everything
+    from splatam_tpu_torch.slam.pipeline import _w2c_from_qt
+
+    config = load_experiment_config(os.path.join(ROOT, "configs", "iphone", "online_demo.py"))
+    config["workdir"] = os.path.join(work, "live")
+    n = config["data"]["num_frames"]
+    track, mapping = config["tracking"]["num_iters"], config["mapping"]["num_iters"]
+    stream = live_stream(config)
+
+    step, step_s = iphone_demo._step_frame, []
+
+    def timed(rt, live_ds, time_idx):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        step(rt, live_ds, time_idx)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+
+    iphone_demo._step_frame = timed
+    seed_everything(config["seed"])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.time()
+    try:
+        rt = iphone_demo.live_slam(config, device, SampleReader(stream))
+    finally:
+        iphone_demo._step_frame = step
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"path 14": launch_counts()}
+    check_launches("path 14", launches["path 14"])
+    k2 = launches["path 14"]["composite_backward"]
+    if k2 != mapping + (n - 1) * (track + mapping):
+        fail(f"path 14: {k2} K2 launches, the config implies {mapping + (n - 1) * (track + mapping)}")
+    if not (np.isfinite(rt.cam_rots).all() and np.isfinite(rt.cam_trans).all()):
+        fail("path 14: non-finite poses")
+    est = [_w2c_from_qt(rt.cam_rots[i], rt.cam_trans[i]) for i in range(n)]
+    ate = evaluate_ate(rt.gt_w2c_all, est)
+    steady = sorted(step_s[1:])
+    print(f"path 14: {n} frames at {rt.cam.width}x{rt.cam.height} in {wall:.3f} s "
+          f"({wall / n:.3f} s/frame with decode and PNG writes); frame step "
+          f"{', '.join(f'{s:.3f}' for s in step_s)} s, median after frame 0 "
+          f"{steady[len(steady) // 2]:.3f} s; ATE {100 * ate:.4f} cm against the served poses; "
+          f"{rt.gm.num_active()} Gaussians; keyframes {rt.keyframe_time_indices}; densify at "
+          f"{rt.densify_cam.width}x{rt.densify_cam.height} ({card})", flush=True)
+    if not math.isfinite(ate) or (rt.densify_cam, rt.tracking_cam) != (rt.cam, rt.cam):
+        fail(f"path 14: ATE {ate}, densify/tracking cameras differ from the main one")
+    last = n - 1
+    check_trained_map(rt.gm, torch.as_tensor(rt.cam_rots[last], device=device),
+                      torch.as_tensor(rt.cam_trans[last], device=device), rt.cam,
+                      "path 14 final")
+    gt_c2w = [np.linalg.inv(w2c) for w2c in rt.gt_w2c_all]
+    del rt
+    torch.cuda.empty_cache()
+
+    # The dataset capture of the same samples, read back by the offline config's loader.
+    real = os.path.join(work, "real_iphone")
+    os.makedirs(real)
+    os.symlink(os.path.join(ROOT, "configs"), os.path.join(real, "configs"))
+    with working_dir(real):
+        capture = load_experiment_config("configs/iphone/dataset.py")
+        t0 = time.time()
+        nerfcapture2dataset.dataset_capture_loop(
+            SampleReader([s for s in stream if s is None or s.has_depth]),
+            Path(capture["workdir"]) / capture["run_name"], capture["overwrite"], n,
+            capture["depth_scale"])
+        secs = time.time() - t0
+        data = load_experiment_config("configs/iphone/splatam.py")["data"]
+        ds = dataset_from_config(data)
+        h, w = data["desired_image_height"], data["desired_image_width"]
+        samples = [s for s in stream if s and s.has_depth]
+        errs = np.zeros(4)
+        for i in range(n):
+            color, depth, k, pose = ds[i]
+            served = iphone_demo._decode_frame(samples[i], w, h, samples[i].width / w)
+            image = iphone_demo._sample_image(samples[i])
+            errs = np.maximum(errs, [np.abs(color - resize_linear(image, h, w)).max(),
+                                     np.abs(depth - served[1]).max(),
+                                     np.abs(k - served[2]).max(),
+                                     np.abs(pose - gt_c2w[i]).max()])
+    # depth: truncated to the uint16 step of depth_scale / 65535 m, the
+    # product rounded in float32 first (well under 1% of a step here)
+    step = capture["depth_scale"] / 65535
+    ok = (len(ds) == n and errs[0] <= 1e-4 and errs[1] <= 1.01 * step
+          and errs[2] <= 1e-4 and errs[3] <= 1e-5)
+    print(f"path 14 capture: {n} frames in {secs:.1f} s, read back at {w}x{h} by "
+          f"configs/iphone/splatam.py's loader ({ds.imread.name}): colour {errs[0]:.1e} (tol 1e-4), "
+          f"depth {errs[1]:.2e} m (tol {1.01 * step:.2e}, a uint16 step), "
+          f"intrinsics {errs[2]:.1e}, pose {errs[3]:.1e} (tol 1e-5) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail("path 14: the captured tree does not read back as the served frames")
     return launches
 
 
@@ -1936,6 +2240,14 @@ def main() -> None:
     t0 = time.time()
     launches.update(drive_viewers(work, device))
     print(f"path 12: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    launches.update(drive_gauntlet(work, device, card))
+    torch.cuda.empty_cache()
+    print(f"path 13: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    launches.update(drive_live(work, device, card))
+    torch.cuda.empty_cache()
+    print(f"path 14: {time.time() - t0:.1f} s", flush=True)
 
     rows = []
     for name, (replaces, source) in KERNELS.items():

@@ -1,9 +1,9 @@
 """params.npz save/load — the interchange format consumed by eval, viz,
 post-opt, and PLY export.
 
-A copy of splatam_tpu/io/params_io.py (numpy only; importing it would
-import jax through splatam_tpu/__init__.py), so both packages write and
-read the same files.
+A copy of splatam_tpu/io/params_io.py (numpy only; importing that module
+would also import jax, through splatam_tpu/__init__.py), so both packages
+write and read the same files.
 
 Schema parity: scripts/splatam.py:973-986 and utils/common_utils.py:25-52:
   means3D [N,3], rgb_colors [N,3], unnorm_rotations [N,4],

@@ -48,6 +48,16 @@ def depth_bits_for(num_tiles: int) -> int:
     return min(bits, 22)
 
 
+def quantized_depth(depth: torch.Tensor, bits: int, far: float = 100.0) -> torch.Tensor:
+    """The depth key of a pair within its tile: log(z) between NEAR_CLIP and
+    far on `bits` bits (int64). Pairs of one tile composite in this key's
+    order, ties in Gaussian index order."""
+    qmax = (1 << bits) - 1
+    z = torch.clamp(depth, NEAR_CLIP, far)
+    log_span = math.log(far / NEAR_CLIP)
+    return torch.clamp((torch.log(z / NEAR_CLIP) / log_span * qmax).to(torch.int64), 0, qmax)
+
+
 def build_bins(proj: Projected, aux: ProjectedAux, width: int, height: int,
                far: float = 100.0) -> Bins:
     """Expand (gaussian, tile) pairs and sort them by (tile, depth) key."""
@@ -55,7 +65,6 @@ def build_bins(proj: Projected, aux: ProjectedAux, width: int, height: int,
     grid_x, grid_y = grid_shape(width, height)
     num_tiles = grid_x * grid_y
     bits = depth_bits_for(num_tiles)
-    qmax = (1 << bits) - 1
     n = proj.depth.shape[0]
 
     rect_w = aux.rect_wh[:, 0]
@@ -63,9 +72,7 @@ def build_bins(proj: Projected, aux: ProjectedAux, width: int, height: int,
     offsets = torch.cumsum(counts, 0) - counts
     total = int(counts.sum())  # the one host sync of a structure build
 
-    z = torch.clamp(proj.depth, NEAR_CLIP, far)
-    log_span = math.log(far / NEAR_CLIP)
-    qdepth = torch.clamp((torch.log(z / NEAR_CLIP) / log_span * qmax).to(torch.int64), 0, qmax)
+    qdepth = quantized_depth(proj.depth, bits, far)
 
     g = torch.repeat_interleave(torch.arange(n, device=device), counts, output_size=total)
     j = torch.arange(total, device=device) - offsets[g]

@@ -30,12 +30,13 @@ from splatam_tpu_torch.core import gaussians as G
 from splatam_tpu_torch.core.camera import Camera, setup_camera
 from splatam_tpu_torch.core.transforms import matrix_to_quaternion
 from splatam_tpu_torch.data import frame_to_tensors, make_datasets
-from splatam_tpu_torch.eval.evaluate import eval_sequence, report_progress
+from splatam_tpu_torch.eval.evaluate import eval_sequence, render_at_pose, report_progress
 from splatam_tpu_torch.io.params_io import save_params, save_params_ckpt
 from splatam_tpu_torch.slam import optim, steps, steps_gs
 from splatam_tpu_torch.slam.config import backfill_defaults
 from splatam_tpu_torch.slam.keyframes import keyframe_selection_overlap
 from splatam_tpu_torch.utils.device import require_device
+from splatam_tpu_torch.viz.panels import PanelFigure
 
 
 def _phase_cfg(section: dict) -> steps.PhaseConfig:
@@ -133,32 +134,32 @@ def _sync(device: torch.device) -> None:
 
 def _unported(config: dict) -> None:
     """Raise for every configuration this slice does not run."""
-    checks = [
-        (int(config["tpu"].get("spatial_shards", 0)) > 1,
-         "row-sharded rendering is not ported yet (ROADMAP, module list item 1.11)"),
-        (bool(config["tracking"].get("visualize_tracking_loss", False)),
-         "tracking.visualize_tracking_loss (the per-frame GT/render panel) is not ported yet "
-         "(ROADMAP, module list item 1.10)"),
-    ]
-    for bad, msg in checks:
-        if bad:
-            raise NotImplementedError(msg)
+    if int(config["tpu"].get("spatial_shards", 0)) > 1:
+        raise NotImplementedError(
+            "row-sharded rendering is not ported yet (ROADMAP, module list item 1.11)")
 
 
 class SLAMRuntime:
     """Mutable state of one SLAM run, on one device: the card unless the
     caller asks for the CPU (`device="cpu"` runs the kernels' plain
     versions). Asking for the card where there is none raises; nothing
-    falls back to the CPU."""
+    falls back to the CPU.
 
-    def __init__(self, config: dict, device="cuda"):
+    `datasets` = (dataset, densify_dataset, tracking_dataset) takes the
+    place of the config's (make_datasets); the live path passes its
+    in-memory frame list, with no densification or tracking dataset. The
+    map starts from frame 0 of the densification dataset (else the main
+    one), which must exist when the runtime is built."""
+
+    def __init__(self, config: dict, device="cuda", datasets=None):
         self.config = config = backfill_defaults(config)
         _unported(config)
         self.device = device = require_device(device, "SLAMRuntime")
         self.output_dir = os.path.join(config["workdir"], config["run_name"])
         self.eval_dir = os.path.join(self.output_dir, "eval")
         os.makedirs(self.eval_dir, exist_ok=True)
-        self.dataset, self.densify_dataset, self.tracking_dataset = make_datasets(config)
+        self.dataset, self.densify_dataset, self.tracking_dataset = (
+            make_datasets(config) if datasets is None else datasets)
         num_frames = config["data"].get("num_frames", -1)
         self.num_frames = len(self.dataset) if num_frames == -1 else num_frames
         self.rebin_every = int(config["tpu"]["rebin_every"])
@@ -572,12 +573,51 @@ def _replay_iter_progress(hist, phase: str, frame: int) -> None:
     bar.close()
 
 
+def tracking_loss_panels(gm, q, t, cam: Camera, color, depth, sil_thres: float) -> list:
+    """The tracking-loss figure's eight panels at pose (q, t), as (numpy
+    image, title, colour map) (splatam_tpu/slam/pipeline.py:1518-1591):
+    GT RGB, GT depth, the render's RGB and depth (K1 through render_at_pose),
+    the RGB L1 inside the silhouette mask, the depth L1 inside the mask
+    where the depth is valid, the mask (silhouette > sil_thres) and the
+    valid-depth mask."""
+    out = render_at_pose(gm, q, t, cam)
+    mask = (out.silhouette > sil_thres).cpu().numpy()
+    im = np.clip(out.im.cpu().numpy().transpose(1, 2, 0), 0, 1)
+    gt_im = color.cpu().numpy().transpose(1, 2, 0)
+    rd, gd = out.depth.cpu().numpy(), depth.cpu().numpy()
+    return [
+        (gt_im, "GT RGB", None),
+        (gd, "GT Depth", "jet"),
+        (im, "Rastered RGB", None),
+        (rd, "Rastered Depth", "jet"),
+        (np.abs(gt_im - im).mean(-1) * mask, "Diff RGB L1 (masked)", "jet"),
+        (np.abs(gd - rd) * mask * (gd > 0), "Diff Depth L1 (masked)", "jet"),
+        (mask.astype(np.float32), f"Silhouette > {sil_thres}", "gray"),
+        ((gd > 0).astype(np.float32), "Valid Depth", "gray"),
+    ]
+
+
+def _save_tracking_loss_viz(rt: SLAMRuntime, figure: PanelFigure, time_idx: int, tr_color,
+                            tr_depth) -> None:
+    """tracking.visualize_tracking_loss (scripts/splatam.py:292-337): after
+    the frame's tracking, the panels at the tracked pose on the tracking
+    frame and camera, saved to <output_dir>/tracking_loss_viz/{t:04d}.png.
+    The reference redraws its window every tracking iteration; here, as in
+    the JAX package, once per frame."""
+    panels = tracking_loss_panels(
+        G.slice_prefix(rt.gm, rt.gm.span()), rt.cam_rots[time_idx], rt.cam_trans[time_idx],
+        rt.tracking_cam, tr_color, tr_depth, rt.config["tracking"]["sil_thres"])
+    figure.save(panels, os.path.join(rt.output_dir, "tracking_loss_viz", f"{time_idx:04d}.png"),
+                f"Tracking Loss Visualization — Frame {time_idx}")
+
+
 def rgbd_slam(config: dict, device="cuda") -> dict:
     """Run the full online SLAM (splatam_tpu/slam/pipeline.py:1585-1853);
     returns the final evaluation's metric dict with the runtime averages.
 
-    Per frame: pose init, compact, tracking (or the ground-truth pose), a
-    progress report at frame 0 and every report_global_progress_every
+    Per frame: pose init, compact, tracking (or the ground-truth pose;
+    with tracking.visualize_tracking_loss, the tracked frame's panel
+    figure), a progress report at frame 0 and every report_global_progress_every
     frames (at the tracking size), densify (at the densification size) and
     map every map_every frames, a keyframe every
     keyframe_every frames and at num_frames - 2 (only for a finite
@@ -601,6 +641,7 @@ def rgbd_slam(config: dict, device="cuda") -> dict:
                                 "mapping_iter_time_count", "mapping_frame_time_count"), 0))
     logger = MetricsLogger(bool(config["use_wandb"]), config, rt.output_dir)
     wandb_time_step = wandb_mapping_step = 0
+    loss_figure = PanelFigure() if cfg_t["visualize_tracking_loss"] else None
 
     checkpoint_time_idx = 0
     if config["load_checkpoint"]:
@@ -629,6 +670,8 @@ def rgbd_slam(config: dict, device="cuda") -> dict:
                         wandb_time_step, tracking=True)
             if report_iter:
                 _replay_iter_progress(rt.tracking_hist, "Tracking", time_idx)
+            if loss_figure is not None:
+                _save_tracking_loss_viz(rt, loss_figure, time_idx, tr_color, tr_depth)
         elif time_idx > 0:
             rt.set_gt_pose(time_idx, gt_w2c)
             stats["tracking_frame_time_count"] += 1

@@ -166,3 +166,54 @@ def test_the_three_backends_agree(n_colors, append):
         assert torch.equal(radii, radii_a)
         for name, mine, ref in zip(s, grads, grads_a):
             close(mine.numpy(), ref.numpy(), f"{backend} {name}")
+
+
+def test_kernel_gradients_against_float64():
+    """The kernels' semantics (the plain versions of K1 -> K2 -> K3, the
+    "auto" backend on the CPU) against the naive backend in float64 on
+    chip_smoke.py path 11's reference scene (2,000 anisotropic Gaussians
+    at 160x120, its seed), where the card put the kernels 3.0e-5 of the
+    largest gradient from the float32 naive and tiles backends. That gap
+    is the float32 error of the reference rasterizer's backward, which
+    recovers each pair's transmittance by dividing by (1 - alpha) on the
+    back-to-front walk (render/composite.py); the float32 naive backend
+    (forward-order autograd) lies closer to float64. Held: images within
+    1e-5, gradients within the suite's 5e-5 of their largest."""
+    from splatam_tpu_torch.core.gaussians import GaussianMap
+    from splatam_tpu_torch.slam import steps
+
+    n = 2000
+    rng = np.random.default_rng(0)
+    fields = dict(
+        means3d=np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-1, 1, n),
+                          rng.uniform(1.0, 5, n)], -1).astype(np.float32),
+        rgb_colors=rng.uniform(0, 1, (n, 3)).astype(np.float32),
+        unnorm_rotations=rng.normal(size=(n, 4)).astype(np.float32),
+        logit_opacities=rng.normal(1.0, 0.5, n).astype(np.float32),
+        log_scales=np.log(rng.uniform(0.01, 0.08, (n, 1))).astype(np.float32),
+        active=rng.uniform(size=n) > 0.1,
+    )
+    fields["log_scales"] = np.log(rng.uniform(0.01, 0.08, (n, 3))).astype(np.float32)
+    gm = GaussianMap(**{k: torch.tensor(v) for k, v in fields.items()})
+    q, t = torch.tensor([0.99, 0.02, -0.03, 0.01]), torch.tensor([0.02, -0.01, 0.03])
+    cam = Camera(height=120, width=160, fx=150.0, fy=150.0, cx=80.0, cy=60.0)
+    with torch.no_grad():
+        means, rots = steps.transform_to_frame(gm, q, t, False, False)
+    gen = torch.Generator().manual_seed(12)
+    colors = torch.rand((n, 3), generator=gen)
+    w = torch.randn((3, cam.height, cam.width), generator=gen, dtype=torch.float64)
+    out = {}
+    for backend, dtype in (("auto", torch.float32), ("naive", torch.float64)):
+        leaves = [a.detach().to(dtype).requires_grad_(True)
+                  for a in (means, colors, rots, gm.logit_opacities, gm.log_scales)]
+        with pytest.MonkeyPatch.context() as mp:  # the camera's w2c in the leaves' dtype
+            w2c = Camera.w2c_tensor
+            mp.setattr(Camera, "w2c_tensor", lambda self, device: w2c(self, device).to(dtype))
+            img, _, _ = api.render_gaussians(cam, *leaves, gm.active, backend=backend,
+                                             append_depth_channels=False)
+            grads = torch.autograd.grad((img * w.to(dtype)).sum(), leaves)
+        out[backend] = img.detach().double(), [g.double() for g in grads]
+    (img, grads), (ref_img, ref_grads) = out["auto"], out["naive"]
+    assert float((img - ref_img).abs().max()) <= 1e-5
+    for name, g, r in zip(("means", "colors", "rotations", "opacities", "scales"), grads, ref_grads):
+        assert float((g - r).abs().max() / r.abs().max()) <= GRAD_TOL, name

@@ -191,9 +191,11 @@ def test_add_new_gaussians_off_skips_densification(tmp_path):
 ])
 def test_unported_configurations_raise(tmp_path, override, item):
     """A configuration of a module item still to port raises, naming the
-    item. Item 1.8 (in-loop 3DGS densification) is ported: its
-    configuration builds (tests/test_torch_gs_loop.py runs it)."""
-    if item == "module list item 1.8":
+    item. Items 1.8 (in-loop 3DGS densification) and 1.10
+    (tracking.visualize_tracking_loss) are ported: their configurations
+    build (tests/test_torch_gs_loop.py and tests/test_torch_tracking_viz.py
+    run them)."""
+    if item != "module list item 1.11":
         assert SLAMRuntime(_config(tmp_path, **override), "cpu").gs_passes == []
         return
     with pytest.raises(NotImplementedError, match=item):

@@ -1,11 +1,12 @@
 """Config keys the port carries, each held against the JAX package end to
 end: 2 frames of test_torch_slam.py's micro config (6 tracking and 8 mapping
-iterations at 64x48, rebin_every=8, so the fused path) with one key changed.
+iterations at 64x48, rebin_every=8, so the fused path) with one key changed;
+use_depth_loss_thres also at rebin_every=1 (the generic render).
 
 Same tolerance as test_slam_loop_matches_jax: poses within 1e-4, equal
 active counts per frame, equal keyframes. Each case also checks that its
-key changed the run (against the unchanged config's poses or counts, run
-once per module in the port only), so a key that is silently ignored by
+key changed the run (against the unchanged config's poses or counts at the
+case's rebin_every, run once per module in the port only), so a key that is silently ignored by
 both packages does not pass for parity; the one key both packages ignore
 on purpose (use_l1, as the reference does) must leave the run unchanged.
 """
@@ -33,6 +34,10 @@ CASES = {
     # a threshold no frame meets: tracking runs its one-time doubling (12 iterations)
     "depth_loss_doubling": dict(tracking={"use_depth_loss_thres": True,
                                           "depth_loss_thres": 1e-6}),
+    # the same on the generic render (rebin_every=1), as ScanNet++ and the iPhone capture run it
+    "depth_loss_doubling_rebin1": dict(tracking={"use_depth_loss_thres": True,
+                                                 "depth_loss_thres": 1e-6},
+                                       tpu={"rebin_every": 1}),
     "lr_decay": dict(tracking={"lr_decay_frac": 0.1}),
     # frame 0 maps 14 iterations instead of 8
     "bootstrap": dict(mapping={"bootstrap_num_iters": 14, "bootstrap_frames": 1}),
@@ -57,19 +62,29 @@ IGNORED = {"use_l1_off"}
 
 
 @pytest.fixture(scope="module")
-def base(tmp_path_factory):
-    """The port's run of the unchanged micro config."""
-    seed_everything(0)
-    rt = SLAMRuntime(_config(tmp_path_factory.mktemp("base")), "cpu")
-    active = []
-    for i in range(FRAMES):
-        run_frame(rt, i)
-        active.append(rt.gm.num_active())
-    return rt, active
+def bases(tmp_path_factory):
+    """base(rebin_every): the port's run of the micro config unchanged but
+    for rebin_every, made once per value."""
+    runs = {}
+
+    def base(rebin_every):
+        if rebin_every not in runs:
+            seed_everything(0)
+            rt = SLAMRuntime(_config(tmp_path_factory.mktemp("base"),
+                                     tpu={"rebin_every": rebin_every}), "cpu")
+            active = []
+            for i in range(FRAMES):
+                run_frame(rt, i)
+                active.append(rt.gm.num_active())
+            runs[rebin_every] = rt, active
+        return runs[rebin_every]
+
+    return base
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_config_key_matches_jax(tmp_path, base, case):
+def test_config_key_matches_jax(tmp_path, bases, case):
+    base = bases(CASES[case].get("tpu", {}).get("rebin_every", 8))
     rt, jrt, t_active, j_active = run_both(tmp_path, frames=FRAMES, **CASES[case])
     assert t_active == j_active
     np.testing.assert_allclose(rt.cam_rots[:FRAMES], jrt.cam_rots[:FRAMES], atol=1e-4)
