@@ -151,7 +151,37 @@ Phases, each fatal on failure (non-zero exit, no result line):
      against the served poses, Gaussians; K1, K2 and K3-11 on its final map
      at 960x720 against their plain versions; then `dataset_capture_loop`
      on the same samples, read back by configs/iphone/splatam.py's loader
-     equal to the served frames within the uint16 depth step.
+     equal to the served frames within the uint16 depth step;
+ 18. path 15, row bands (tpu.spatial_shards, splatam_tpu_torch/parallel):
+     (a) on path 1's final map at its last pose and frame, with 2 and 4
+     bands against none: get_loss for tracking on the rebin structure
+     (K4/K5), for mapping on the fused render (K4/K5/K3-8) and on the
+     generic render with the 3DGS harvest (K1/K2/K3-11), and densify_step;
+     loss within 1e-5, radii > 0 equal, and every gradient column of the
+     route's render under an L1 cotangent within 5e-5 of its largest
+     value (also over the Gaussians with pairs in two bands); on
+     tests/test_multichip.py's 80-row scene (the fourth band starts past
+     the image and renders nothing) and on the same with its map in the
+     top rows (band 1 of 2 has rows and no pair) also the silhouette within
+     1e-5 at every pixel and get_loss's gradient columns within 5e-5; on
+     path 1's map pairs at the alpha cutoff flip between the band's and
+     the full image's rounding, so there the cotangent is zero at the
+     pixels that moved, each gradient column holds 5e-5 by relative L2
+     and row by row 5e-5 or twice what a one-ulp shift of the full
+     image's rows moves it, no pixel's silhouette moves more than one
+     flip can (SIL_FLIP) and no more pixels move than under that shift
+     (parity_ok); densify_step's candidates equal but where the two
+     renders differ;
+     (b) K1, K2, K3, K4 and K5 on band 1 of 4's structure of path 1's map
+     (cy shifted, the full frame's limits) against their plain versions,
+     K1 and K4 bit for bit; (c) 3 frames of path 1's configuration with
+     tpu.spatial_shards = 4 beside the same 3 frames without bands: ATE,
+     PSNR and Gaussians of both, and each kernel launched 4 times as often
+     as without bands; (d) dryrun_multichip over 4 bands; (e)
+     profile_sharded at --shards 1 2 4 (320x240); (f) profile_map_ablate
+     (950,272 Gaussians, 1200x680), probe_saturation --frames 3 and
+     exp_gather's table gathers and its tracking-gather comparison on path
+     1's final map, each at reduced depth.
 A device-busy time (phases 6, 7, 10) counts only where torch.profiler
 recorded every launch of the port's kernels that the wrappers counted in
 its window; elsewhere it prints as unverified.
@@ -189,6 +219,7 @@ FRAMES_REPLICA, NVS_FRAMES = 6, 3  # paths 5 and 7a: the Replica-V2 tree's train
 FRAMES_TUM = 3  # path 6
 FRAMES_C2F = 4  # path 7b
 FRAMES_GS_LOOP = 4  # path 10
+FRAMES_BANDS, N_BANDS = 3, 4  # path 15 (c)
 # Path 14: the iPhone's depth image is coarser than its colour (256x192 under
 # 1920x1440 on the LiDAR phones).
 PHONE_DEPTH_HW = (192, 256)
@@ -337,6 +368,29 @@ PATH_KERNELS = {
     # the viewers render through K1 alone (five channels: r, g, b, z, z^2)
     "path 12 final_recon": EVAL,
     "path 12 online_recon": EVAL,
+    # path 15: path 1's routing with and without bands; the dryrun (generic
+    # tracking at rebin 1, fused at 2; mapping with the 3DGS harvest);
+    # profile_sharded (fused tracking and mapping, no densify); the
+    # ablation (fused mapping, generic forward); the saturation probe (path
+    # 1's loop, then one K1); the gather comparison (K4 and K5 in both modes)
+    "path 15 unbanded": (("composite_forward", "fused_forward", "fused_backward",
+                          "segment_reduce"), ("composite_backward", "segment_reduce11", *PROBES)),
+    "path 15 bands": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
+                      ("composite_backward", "segment_reduce11", *PROBES)),
+    "path 15 dryrun": (("composite_forward", "composite_backward", "segment_reduce11",
+                        "fused_forward", "fused_backward"), ("segment_reduce", *PROBES)),
+    "path 15 profile_sharded": (("fused_forward", "fused_backward", "segment_reduce"),
+                                ("composite_forward", "composite_backward", "segment_reduce11",
+                                 *PROBES)),
+    "path 15 profile_map_ablate": (("composite_forward", "fused_forward", "fused_backward",
+                                    "segment_reduce"),
+                                   ("composite_backward", "segment_reduce11", *PROBES)),
+    "path 15 probe_saturation": (("composite_forward", "fused_forward", "fused_backward",
+                                  "segment_reduce"),
+                                 ("composite_backward", "segment_reduce11", *PROBES)),
+    "path 15 exp_gather": (("fused_forward", "fused_backward"),
+                           ("composite_forward", "composite_backward", "segment_reduce",
+                            "segment_reduce11", *PROBES)),
 }
 # No path but path 11 launches K1, K2 or K3 at another width.
 PATH_KERNELS = {k: (must, (*never, *WIDE)) for k, (must, never) in PATH_KERNELS.items()}
@@ -2118,6 +2172,421 @@ def drive_live(work: str, device, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Path 15: row bands
+# ---------------------------------------------------------------------------
+
+TRACK_PCFG = dict(use_sil_for_loss=True, sil_thres=0.99, use_l1=True,
+                  ignore_outlier_depth_loss=False, w_im=0.5, w_depth=1.0)
+MAP_PCFG = dict(use_sil_for_loss=False, sil_thres=0.5, use_l1=True,
+                ignore_outlier_depth_loss=False, w_im=0.5, w_depth=1.0)
+
+
+def multichip_scene(device, top: bool = False):
+    """tests/test_multichip.py's scene (256 Gaussians, seed 0) and frame
+    (seed 1) at 80x64: with 4 bands of 32 rows band 3 starts past the last
+    row and renders nothing. With `top` every Gaussian sits in the upper
+    part of the view (y in [-1, -0.6]), so band 1 of 2 has rows and no
+    pair: the kernels walk tiles with empty lists."""
+    import numpy as np
+    import torch
+
+    from splatam_tpu_torch.core.camera import Camera
+    from splatam_tpu_torch.core.gaussians import GaussianMap
+
+    rng = np.random.default_rng(0)
+    n = 256
+    f = dict(means3d=np.stack([rng.uniform(-1, 1, n), rng.uniform(-1, -0.6 if top else 1, n),
+                               rng.uniform(1.5, 4, n)], -1).astype(np.float32),
+             rgb_colors=rng.uniform(0, 1, (n, 3)).astype(np.float32),
+             unnorm_rotations=rng.normal(size=(n, 4)).astype(np.float32),
+             logit_opacities=rng.normal(1.0, 0.5, (n,)).astype(np.float32),
+             log_scales=np.log(rng.uniform(0.02, 0.08, (n, 1))).astype(np.float32),
+             active=np.ones(n, bool))
+    gm = GaussianMap(**{k: torch.tensor(v, device=device) for k, v in f.items()})
+    rng = np.random.default_rng(1)
+    color = torch.tensor(rng.uniform(0, 1, (3, 80, 64)).astype(np.float32), device=device)
+    depth = torch.tensor(rng.uniform(1.0, 4.0, (80, 64)).astype(np.float32), device=device)
+    q = torch.tensor([1.0, 0.01, 0.0, 0.0], device=device)
+    t = torch.tensor([0.02, -0.01, 0.03], device=device)
+    return gm, q, t, Camera(height=80, width=64, fx=60.0, fy=60.0, cx=32.0, cy=40.0), color, depth
+
+
+ROUTES = ("tracking", "mapping fused", "generic")
+# The most one pair flipping across the alpha cutoff (alpha >= 1/255 applied
+# or skipped) moves a pixel's silhouette: alpha / (1 - alpha) <= 1/254, plus
+# the T < 1e-4 stop flipping (1e-4) and rounding (1e-5).
+SIL_FLIP = 1.0 / 254.0 + 1e-4 + 1e-5
+
+
+def banded_loss(route: str, gm, q, t, cam, color, depth, bands):
+    """(loss, aux, gradient columns) of steps.get_loss on one route
+    (bands_multicard.route_inputs) with `bands` (None: the full image), at
+    path 1's phase settings."""
+    from splatam_tpu_torch.scripts import bands_multicard
+    from splatam_tpu_torch.slam import steps
+
+    pcfg = steps.PhaseConfig(**(TRACK_PCFG if route == "tracking" else MAP_PCFG))
+    return bands_multicard.route_loss(route, gm, q, t, cam, color, depth, bands, pcfg)
+
+
+def banded_render(route: str, gm, q, t, cam, bands):
+    """(the route's render through steps.loss_render, still differentiable,
+    and what its gradients are taken of), with `bands`."""
+    from splatam_tpu_torch.scripts import bands_multicard
+    from splatam_tpu_torch.slam import steps
+
+    g, q_, t_, ps, dummy, wrt = bands_multicard.route_inputs(route, gm, q, t, cam, bands)
+    tracking = route == "tracking"
+    return steps.loss_render(g, q_, t_, cam, tracking, not tracking, ps, dummy, bands), wrt
+
+
+def render_vjp(out, wrt, cot) -> list:
+    """The gradient columns of the render's rgb and depth under the
+    cotangents cot = (rgb [3, H, W], depth [H, W])."""
+    import torch
+
+    from splatam_tpu_torch.scripts import bands_multicard
+
+    return bands_multicard.columns(torch.autograd.grad((out.im, out.depth), wrt, cot,
+                                                       retain_graph=True))
+
+
+def moved_pixels(got, ref):
+    """[H, W] pixels where any channel of the banded render lies off the
+    full image's by more than 1e-5 (relative past 1): the pixels a pair
+    flipping across the alpha cutoff (or the T < 1e-4 stop) changes."""
+    import torch
+
+    a = torch.cat([got.im, got.depth[None], got.silhouette[None], got.depth_sq[None]]).detach()
+    b = torch.cat([ref.im, ref.depth[None], ref.silhouette[None], ref.depth_sq[None]]).detach()
+    return ((a - b).abs() > 1e-5 * b.abs().clamp(min=1.0)).any(0)
+
+
+def boundary_rows(cam, n: int):
+    """[H] the image rows within one 16-row tile of a band boundary."""
+    import torch
+
+    from splatam_tpu_torch.parallel import spatial
+
+    h_local, _ = spatial.shard_heights(cam.height, n)
+    rows = torch.arange(cam.height)
+    near = torch.zeros(cam.height, dtype=torch.bool)
+    for k in range(1, n):
+        near |= (rows >= k * h_local - 16) & (rows < k * h_local + 16)
+    return near
+
+
+def straddlers(gm, q, t, cam, bands):
+    """[N] the Gaussians with pairs in two or more bands."""
+    import torch
+
+    from splatam_tpu_torch.slam import steps
+
+    with torch.no_grad():
+        structs = steps.loss_pair_structure(gm, q, t, cam, bands=bands)
+        return torch.stack([ps.counts.to(q.device) > 0 for ps in structs]).sum(0) >= 2
+
+
+def worst_column(bs, us, rows=None):
+    """(the worst column's largest difference over its largest value, its
+    index); with `rows`, over those rows of the per-Gaussian columns only
+    (None if there are none)."""
+    out = None
+    for c, (b, u) in enumerate(zip(bs, us)):
+        top = max(float(u.abs().max()), 1e-30)
+        if rows is not None:
+            if u.shape[0] != rows.shape[0]:
+                continue
+            b, u = b[rows], u[rows]
+        e = float((b - u).abs().max()) / top if u.numel() else 0.0
+        out = max(out or (e, c), (e, c))
+    return out
+
+
+def worst_l2(bs, us) -> float:
+    """The worst column's relative L2 error."""
+    return max(float((b - u).norm()) / max(float(u.norm()), 1e-30) for b, u in zip(bs, us))
+
+
+def vjp_numbers(got, ref, color, depth, straddle) -> dict:
+    """got, ref: (render, what its gradients are taken of) of banded_render.
+    The pixels that moved (moved_pixels), and the render's gradient
+    columns under an L1 loss's cotangent of ref (rgb and depth) that is
+    zero at the moved pixels: the worst column over its largest value
+    (and its index), over the Gaussians in `straddle`, and by relative
+    L2."""
+    import torch
+
+    (out_b, wrt_b), (out_u, wrt_u) = got, ref
+    moved = moved_pixels(out_b, out_u)
+    keep = (~moved).float()
+    with torch.no_grad():
+        cot = (torch.sign(out_u.im - color) * keep,
+               torch.sign(out_u.depth - depth) * (depth > 0) * keep)
+    vb, vu = render_vjp(out_b, wrt_b, cot), render_vjp(out_u, wrt_u, cot)
+    return dict(moved_map=moved, moved=int(moved.sum()), vjp=worst_column(vb, vu),
+                vjp_straddle=None if straddle is None else worst_column(vb, vu, straddle),
+                vjp_l2=worst_l2(vb, vu))
+
+
+def parity_numbers(got, ref, vjp: dict) -> dict:
+    """How far a banded route lies from the full image's: the loss's
+    relative error; the silhouette's largest difference and the pixels off
+    by more than 1e-5; radii > 0 equal; the get_loss gradient's worst
+    column, by its largest difference over its largest value and by its
+    relative L2 error; and vjp_numbers."""
+    (loss_b, aux_b, cols_b), (loss_u, aux_u, cols_u) = got, ref
+    d = (aux_b.silhouette - aux_u.silhouette).abs()
+    return dict(loss=abs(loss_b - loss_u) / max(abs(loss_u), 1e-30), sil=float(d.max()),
+                pixels=int((d > 1e-5).sum()),
+                radii=bool(((aux_b.radii > 0) == (aux_u.radii > 0)).all()),
+                grad=worst_column(cols_b, cols_u)[0], grad_l2=worst_l2(cols_b, cols_u), **vjp)
+
+
+def parity_ok(x: dict, shift: dict | None) -> bool:
+    """tests/test_multichip.py's gates: loss within 1e-5, radii > 0 equal,
+    and the render's gradient columns (vjp_numbers) within 5e-5 of their
+    largest value, also over the Gaussians with pairs in two bands or
+    more. Strict (shift None): also the silhouette within 1e-5 at every
+    pixel and the get_loss gradient columns within 5e-5.
+
+    With `shift` (the full image against itself with its rows moved by one
+    float32 ulp of the image height): a band computes each pair's pixel
+    position with its own NDC terms, which round otherwise by about that
+    much. A pair at the alpha cutoff then flips in one render and not the
+    other, so every pixel's silhouette must stay within what one flip
+    moves (SIL_FLIP) and no more pixels may move than under the shift; the
+    render's gradients are taken with a cotangent that is zero at the
+    moved pixels, so flips move no gradient. A small Gaussian's gradient
+    still moves with its position by up to what the shift moves it, so
+    each column holds 5e-5 of its largest value by relative L2 and, row
+    by row, 5e-5 or twice the shift's, whichever is larger."""
+    ok = x["loss"] <= 1e-5 and x["radii"] and math.isfinite(x["loss"])
+    straddle = x["vjp_straddle"][0] if x["vjp_straddle"] is not None else 0.0
+    if shift is None:
+        return (ok and x["vjp"][0] <= 5e-5 and straddle <= 5e-5 and x["pixels"] == 0
+                and x["grad"] <= 5e-5)
+    tol = max(5e-5, 2 * shift["vjp"][0])
+    return (ok and x["vjp"][0] <= tol and straddle <= tol and x["vjp_l2"] <= 5e-5
+            and x["sil"] <= SIL_FLIP and x["pixels"] <= shift["pixels"])
+
+
+def fmt_vjp(x: dict) -> str:
+    s = (f"{x['moved']} pixels moved in any channel; render gradient off them worst column "
+         f"{x['vjp'][0]:.1e} of its largest (column {x['vjp'][1]}), relative L2 "
+         f"{x['vjp_l2']:.1e}")
+    if x["vjp_straddle"] is not None:
+        s += f", {x['vjp_straddle'][0]:.1e} over the Gaussians in two bands or more"
+    return s
+
+
+def fmt_parity(x: dict) -> str:
+    return (f"loss rel {x['loss']:.1e}, silhouette max|diff| {x['sil']:.1e} ({x['pixels']} "
+            f"pixels > 1e-5), radii > 0 equal {x['radii']}, get_loss gradient worst column "
+            f"{x['grad']:.1e} of its largest (relative L2 {x['grad_l2']:.1e}); {fmt_vjp(x)}")
+
+
+def check_band_parity(scene, label: str, strict: bool) -> None:
+    """Path 15 (a) on one scene: each route with 2 and 4 bands against the
+    full image (parity_ok; strict: test_multichip.py's gates, else beside
+    the full image under a one-ulp row shift)."""
+    import torch
+
+    from splatam_tpu_torch.parallel import spatial
+    from splatam_tpu_torch.slam import steps
+
+    gm, q, t, cam, color, depth = scene
+    ref = {r: banded_loss(r, gm, q, t, cam, color, depth, None) for r in ROUTES}
+    ref_out = {r: banded_render(r, gm, q, t, cam, None) for r in ROUTES}
+    ulp = 2.0 ** (math.floor(math.log2(cam.height)) - 23)
+    cam_s = cam._replace(cy=cam.cy + ulp)
+    shift = {}
+    for r in ROUTES:
+        got = banded_loss(r, gm, q, t, cam_s, color, depth, None)
+        d = (got[1].silhouette - ref[r][1].silhouette).abs()
+        shift[r] = dict(pixels=int((d > 1e-5).sum()), sil=float(d.max()), **vjp_numbers(
+            banded_render(r, gm, q, t, cam_s, None), ref_out[r], color, depth, None))
+        print(f"[path 15 {label}] {r}, the full image with cy + {ulp:.2e} px: silhouette "
+              f"max|diff| {shift[r]['sil']:.1e} ({shift[r]['pixels']} pixels > 1e-5); "
+              f"{fmt_vjp(shift[r])}", flush=True)
+    thr = MAP_PCFG["sil_thres"]
+    out_u = steps.densify_render(gm, q, t, cam)
+    cand_u = steps.densify_candidates(out_u, depth, thr)
+    for n in (2, N_BANDS):
+        bands = spatial.make_bands(n, q.device)
+        straddle = straddlers(gm, q, t, cam, bands)
+        edge = boundary_rows(cam, n).to(q.device)
+        for r in ROUTES:
+            x = parity_numbers(banded_loss(r, gm, q, t, cam, color, depth, bands), ref[r],
+                               vjp_numbers(banded_render(r, gm, q, t, cam, bands), ref_out[r],
+                                           color, depth, straddle))
+            ok = parity_ok(x, None if strict else shift[r])
+            print(f"[path 15 {label}, {n} bands] {r}: {fmt_parity(x)}; "
+                  f"{int(x['moved_map'][edge].sum())} moved pixels of "
+                  f"{int(edge.sum()) * cam.width} within a tile of a band boundary, "
+                  f"{int(straddle.sum())} Gaussians in two bands or more "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"path 15 ({label}): {r} with {n} bands differs from the full image")
+        pad = cam.width * cam.height
+        big = type(gm)(*(torch.cat([a, torch.zeros((pad,) + a.shape[1:], dtype=a.dtype,
+                                                   device=a.device)]) for a in gm))
+        ts = torch.zeros((big.means3d.shape[0],), device=q.device)
+        _, _, n_b, drop_b = steps.densify_step(big, ts, color, depth, q, t, 1, cam, thr, bands)
+        out_b = steps.densify_render(gm, q, t, cam, bands)
+        cand_b = steps.densify_candidates(out_b, depth, thr)
+        # a candidate may differ only where the two renders differ past rounding
+        # or the silhouette lies within 1e-5 of the threshold
+        near = (out_u.silhouette - thr).abs() <= 1e-5
+        stray = int(((cand_b != cand_u) & ~moved_pixels(out_b, out_u) & ~near).sum())
+        ok = drop_b == 0 and n_b == int(cand_b.sum()) and stray == 0
+        print(f"[path 15 {label}, {n} bands] densify_step: {n_b} added vs "
+              f"{int(cand_u.sum())}, {int((cand_b != cand_u).sum())} candidates differ, "
+              f"{stray} of them where the renders agree {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"path 15 ({label}): densify_step with {n} bands differs from the full image")
+        del big, ts, out_b, cand_b
+        if q.is_cuda:
+            torch.cuda.empty_cache()
+
+
+def band_inputs(gm, q, t, cam, k: int, n: int, seed: int) -> SimpleNamespace:
+    """kernel_inputs of band k of n: its structure (world-8 rows gathered
+    per pair), its pose vector (cy - row0, the full image's limits, NDC
+    terms from the band's own width and height) and its generic render's
+    attrs, as parallel/spatial.py builds them."""
+    import torch
+
+    from splatam_tpu_torch.core.transforms import build_rotation, normalize
+    from splatam_tpu_torch.parallel import spatial
+    from splatam_tpu_torch.render import api, composite, fused_iso
+    from splatam_tpu_torch.slam import steps
+
+    bands = spatial.make_bands(n, q.device)
+    h_local, _ = spatial.shard_heights(cam.height, n)
+    cam_b = cam._replace(height=spatial.band_rows(cam.height, n)[k])
+    intr = (cam.fx, cam.fy, cam.cx, cam.cy - k * h_local)
+    w, h = cam.width, cam_b.height
+    with torch.no_grad():
+        means_cam, rots = steps.transform_to_frame(gm, q, t, False, False)
+        rows8 = fused_iso.pack_world8(gm.means3d, gm.logit_opacities, gm.log_scales,
+                                      gm.rgb_colors, gm.active)
+        ps = spatial.compute_pair_structure_sharded(bands, cam, means_cam, rots,
+                                                    gm.logit_opacities, gm.log_scales,
+                                                    gm.active, world_rows8=rows8)[k]
+        pose = fused_iso.make_pose_vec(build_rotation(normalize(q)[None])[0], t, w, h,
+                                       *fused_iso._geom_for(cam_b, intr, (cam.width,
+                                                                          cam.height))[2])
+        proj, _ = api.project_gaussians(cam_b, means_cam, rots, gm.logit_opacities,
+                                        gm.log_scales, gm.active, intr, (cam.width, cam.height))
+    gen = torch.Generator(q.device).manual_seed(seed)
+    state = fused_iso.fused_forward(ps.world8, pose, ps.tile_start, w, h)
+    g = torch.randn((6, h, w), device=q.device, generator=gen)
+    dpair = fused_iso.fused_backward(ps.world8, pose, ps.tile_start, w, h, state, g)
+    d = proj.depth[:, None]
+    attrs = torch.cat([proj.xy, proj.conic, proj.opacity[:, None], gm.rgb_colors, d, d * d],
+                      1).contiguous()
+    gstate = composite.composite_forward(attrs, ps.pair_gauss, ps.tile_start, w, h)
+    g2 = torch.randn((6, h, w), device=q.device, generator=gen)
+    dgen = composite.composite_backward(attrs, ps.pair_gauss, ps.tile_start, w, h, gstate, g2)
+    return SimpleNamespace(w=w, h=h, attrs=attrs, b=ps, gstate=gstate, g2=g2, dgen=dgen, ps=ps,
+                           pose=pose, state=state, g=g, dpair=dpair, rows8=rows8)
+
+
+def drive_bands(work: str, device, final_map, final_frame) -> dict:
+    """Path 15: returns the launch counts of (c)-(f)."""
+    import numpy as np
+    import torch
+
+    from splatam_tpu_torch.eval.evaluate import report_progress
+    from splatam_tpu_torch.scripts import (
+        dryrun_multichip, exp_gather, probe_saturation, profile_map_ablate, profile_sharded,
+    )
+    from splatam_tpu_torch.scripts.harness import launch_counts, reset_launch_counts
+    from splatam_tpu_torch.slam.pipeline import _w2c_from_qt
+
+    t0 = time.time()
+    view, q, t, cam = final_map
+    check_band_parity((view, q, t, cam, *final_frame), f"path 1's map, {WIDTH}x{HEIGHT}",
+                      strict=False)
+    check_band_parity(multichip_scene(device), "80x64, band 3 of 4 past the image",
+                      strict=True)
+    check_band_parity(multichip_scene(device, top=True), "80x64, the map in the top rows",
+                      strict=True)
+    x = band_inputs(view, q, t, cam, 1, N_BANDS, seed=5)
+    label = f"band 1 of {N_BANDS}, {x.w}x{x.h}, {x.ps.n_pairs} pairs"
+    cases = kernel_cases(x)
+    check_cases(cases, label)
+    check_repeat(cases, label)
+    del x, cases
+    torch.cuda.empty_cache()
+    print(f"path 15 (a, b): {time.time() - t0:.1f} s", flush=True)
+
+    launches, runs = {}, {}
+    for name, shards in (("path 15 unbanded", 0), ("path 15 bands", N_BANDS)):
+        t1 = time.time()
+        rt, launches[name] = drive_path(name, bench_config(work, tpu={"spatial_shards": shards}),
+                                        FRAMES_BANDS, device)
+        last = FRAMES_BANDS - 1
+        span = rt.gm.span()
+        color, depth = final_frame_of(rt, last, device)
+        m = report_progress(type(rt.gm)(*(a[:span] for a in rt.gm)), rt.cam_rots[last],
+                            rt.cam_trans[last], color, depth, rt.cam, TRACK_PCFG["sil_thres"],
+                            tracking=True, gt_w2c_list=rt.gt_w2c_all,
+                            est_w2c_list=[_w2c_from_qt(rt.cam_rots[i], rt.cam_trans[i])
+                                          for i in range(FRAMES_BANDS)])
+        runs[name] = m
+        print(f"[{name}] {FRAMES_BANDS} frames in {time.time() - t1:.1f} s: ATE "
+              f"{m['ate_rmse'] * 100:.4f} cm, PSNR {m['psnr']:.4f} dB, {rt.gm.num_active()} "
+              f"Gaussians, bands {rt.bands}", flush=True)
+        if not (np.isfinite(m["ate_rmse"]) and np.isfinite(m["psnr"])):
+            fail(f"{name}: non-finite ATE or PSNR: {m}")
+        del rt
+        torch.cuda.empty_cache()
+    plain, banded = launches["path 15 unbanded"], launches["path 15 bands"]
+    off = {k: (plain[k], banded[k]) for k in plain if banded[k] != N_BANDS * plain[k]}
+    print(f"path 15 (c): launches with {N_BANDS} bands {N_BANDS}x those without: {not off}",
+          flush=True)
+    if off:
+        fail(f"path 15 (c): launches not {N_BANDS}x the unbanded run's: {off}")
+
+    def counted(name, fn):
+        t1 = time.time()
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = launch_counts()
+        check_launches(name, launches[name])
+        print(f"{name}: {time.time() - t1:.1f} s", flush=True)
+        return out
+
+    counted("path 15 dryrun", lambda: dryrun_multichip.main(["--bands", str(N_BANDS)]))
+    counted("path 15 profile_sharded", lambda: profile_sharded.main(
+        ["--shards", "1", "2", "4", "--reps", "2"]))
+    counted("path 15 profile_map_ablate", lambda: profile_map_ablate.main(
+        ["--n", str(PROFILE_N), "--h", str(HEIGHT), "--w", str(WIDTH), "--iters", "3",
+         "--reps", "2"]))
+    counted("path 15 probe_saturation", lambda: probe_saturation.main(
+        ["--frames", "3", "--h", str(HEIGHT), "--w", str(WIDTH)]))
+
+    def gathers():
+        exp_gather.table_gathers(1835008, int(1835008 * 1.08) // 128 * 128, device, 10, 2)
+        return exp_gather.tracking_gather(view, q, t, cam, device, 10, 2)
+
+    counted("path 15 exp_gather", gathers)
+    print(f"path 15: {time.time() - t0:.1f} s", flush=True)
+    return launches
+
+
+def final_frame_of(rt, idx: int, device):
+    """Frame idx of the runtime's dataset on the device (colour, depth)."""
+    from splatam_tpu_torch.data import frame_to_tensors
+
+    color_np, depth_np, _, _ = rt.dataset[idx]
+    return frame_to_tensors(color_np, depth_np, device)
+
+
 def main() -> None:
     import torch
 
@@ -2186,8 +2655,9 @@ def main() -> None:
     bounds = report_bounds(kernel_work(x), times, label)
     report_fused_cull(x, "fused render")
     del x, cases
-    # path 11 renders this map (path 1's final one) at this pose
+    # paths 11 and 15 render this map (path 1's final one) at this pose
     final_map = (view, q_l, t_l, rt.cam)
+    final_frame = final_frame_of(rt, FRAMES - 1, device)
     profile_frame(rt, FRAMES, "path 1", device)
     del rt, view
     torch.cuda.empty_cache()
@@ -2233,7 +2703,7 @@ def main() -> None:
     wide = check_generic_kernels(m, f"path 11, {WIDTH}x{HEIGHT}")
     for table, wide_table in zip((errs, times, bounds, library), wide):
         table.update(wide_table)
-    del m, final_map
+    del m
     torch.cuda.empty_cache()
     check_references(device)
     print(f"path 11: {time.time() - t0:.1f} s", flush=True)
@@ -2248,6 +2718,9 @@ def main() -> None:
     launches.update(drive_live(work, device, card))
     torch.cuda.empty_cache()
     print(f"path 14: {time.time() - t0:.1f} s", flush=True)
+    launches.update(drive_bands(work, device, final_map, final_frame))
+    del final_map, final_frame
+    torch.cuda.empty_cache()
 
     rows = []
     for name, (replaces, source) in KERNELS.items():

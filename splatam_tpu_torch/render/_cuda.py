@@ -143,6 +143,22 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
 
 
+def launch(t: torch.Tensor, entry: str, *args, label: str | None = None) -> None:
+    """Call the library's `entry` with args and then t's current stream,
+    with t's card the runtime's current device for the call (the library
+    launches on the current device, which need not be the one t lies on
+    when the row bands of parallel/spatial.py span several cards; the
+    device is switched only then, so a one-card launch pays one query).
+    Raises on a launch error, naming the kernel `label` (default: entry)."""
+    fn = getattr(lib(), entry)
+    if t.device.index == torch.cuda.current_device():
+        err = fn(*args, stream_ptr(t))
+    else:
+        with torch.cuda.device(t.device):
+            err = fn(*args, stream_ptr(t))
+    check(err, label or entry)
+
+
 class KernelInfo(NamedTuple):
     """What the compiler and the runtime give one kernel on this card."""
 

@@ -64,24 +64,45 @@ def _prep_gaussians(unnorm_rotations, logit_opacities, log_scales):
 
 
 def project_gaussians(cam: Camera, means3d, unnorm_rotations, logit_opacities, log_scales,
-                      active):
-    """EWA-project a map's Gaussians through cam (render.projection.project)."""
+                      active, intrinsics_override=None, lim_wh=None):
+    """EWA-project a map's Gaussians through cam (render.projection.project).
+    intrinsics_override (fx, fy, cx, cy) replaces cam's intrinsics (the
+    image size stays cam's), and lim_wh the (width, height) of the
+    frustum clamp: the projection of one band of a larger image (its
+    binning also takes the depth key of that image's tile grid)."""
     quats, logit_op, scales = _prep_gaussians(unnorm_rotations, logit_opacities, log_scales)
+    fx, fy, cx, cy = (intrinsics_override if intrinsics_override is not None
+                      else (cam.fx, cam.fy, cam.cx, cam.cy))
     return projection_mod.project(
         means3d, quats, logit_op, scales, active, cam.w2c_tensor(means3d.device),
-        cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height,
+        fx, fy, cx, cy, cam.width, cam.height, lim_wh=lim_wh,
     )
 
 
 @torch.no_grad()
 def compute_pair_structure(cam: Camera, means3d, unnorm_rotations, logit_opacities,
-                           log_scales, active) -> PairStructure:
+                           log_scales, active, intrinsics_override=None, lim_wh=None,
+                           world_rows=None, world_rows8=None) -> PairStructure:
     """Binning structure for a render at this geometry (inputs are
-    constants)."""
+    constants); intrinsics_override and lim_wh as project_gaussians takes
+    them (one band's structure, parallel/spatial.py).
+
+    world_rows [N, 13] (pairspace.pack_world_rows) also gathers the
+    structure's world16 per sorted pair for the pair-space tracking render
+    of an anisotropic map, world_rows8 [N, 8] (fused_iso.pack_world8) its
+    world8 for the fused one of an isotropic map; at most one of the two."""
+    if world_rows is not None and world_rows8 is not None:
+        raise ValueError("world_rows and world_rows8 exclude each other: a structure carries "
+                         "world-16 rows (anisotropic map) or world-8 rows (isotropic map)")
     proj, aux = project_gaussians(cam, means3d, unnorm_rotations, logit_opacities,
-                                  log_scales, active)
-    b = binning_mod.build_bins(proj, aux, cam.width, cam.height, far=cam.far)
-    return PairStructure(b.pair_gauss, b.tile_start, b.offsets, b.counts, b.dst, b.n_pairs)
+                                  log_scales, active, intrinsics_override, lim_wh)
+    ps = _bins(proj, aux, cam, lim_wh)
+    idx = ps.pair_gauss.long()
+    if world_rows8 is not None:
+        ps = ps._replace(world8=world_rows8[idx].contiguous())
+    elif world_rows is not None:
+        ps = ps._replace(world16=world_rows[idx].contiguous())
+    return ps
 
 
 def _public(img, radii, n_pairs) -> RenderOutput:
@@ -99,9 +120,12 @@ def _no_radii(ps: PairStructure) -> torch.Tensor:
     return torch.zeros(ps.counts.shape, dtype=torch.int32, device=ps.counts.device)
 
 
-def _bins(proj, aux, cam: Camera) -> PairStructure:
+def _bins(proj, aux, cam: Camera, lim_wh=None) -> PairStructure:
+    """The binning of a projection through cam; lim_wh (a band's full
+    image) also sets the depth key's bits (binning.build_bins full_wh)."""
     with torch.no_grad():
-        b = binning_mod.build_bins(proj, aux, cam.width, cam.height, far=cam.far)
+        b = binning_mod.build_bins(proj, aux, cam.width, cam.height, far=cam.far,
+                                   full_wh=lim_wh)
     return PairStructure(b.pair_gauss, b.tile_start, b.offsets, b.counts, b.dst, b.n_pairs)
 
 
@@ -113,12 +137,8 @@ def _render(cam: Camera, means3d, colors, unnorm_rotations, logit_opacities, log
     constant 1)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend: one of {BACKENDS}, got {backend!r}")
-    quats, logit_op, scales = _prep_gaussians(unnorm_rotations, logit_opacities, log_scales)
-    fx, fy, cx, cy = (intrinsics_override if intrinsics_override is not None
-                      else (cam.fx, cam.fy, cam.cx, cam.cy))
-    proj, aux = projection_mod.project(
-        means3d, quats, logit_op, scales, active, cam.w2c_tensor(means3d.device),
-        fx, fy, cx, cy, cam.width, cam.height, lim_wh=lim_wh)
+    proj, aux = project_gaussians(cam, means3d, unnorm_rotations, logit_opacities, log_scales,
+                                  active, intrinsics_override, lim_wh)
     opacity = proj.opacity
     if pair_structure is not None:
         opacity = torch.where(active, opacity, 0.0)
@@ -135,7 +155,7 @@ def _render(cam: Camera, means3d, colors, unnorm_rotations, logit_opacities, log
         chans = torch.cat([colors, *extra], dim=1)
     if kernels:
         composite.check_channels(chans.shape[1])
-        ps = pair_structure if pair_structure is not None else _bins(proj, aux, cam)
+        ps = pair_structure if pair_structure is not None else _bins(proj, aux, cam, lim_wh)
         img = composite.CompositeGauss.apply(xy, proj.conic, opacity, chans, ps,
                                              cam.width, cam.height)
         return img, aux.radius, ps.n_pairs
@@ -143,7 +163,7 @@ def _render(cam: Camera, means3d, colors, unnorm_rotations, logit_opacities, log
         img = naive.composite_naive(proj._replace(xy=xy, opacity=opacity), aux, chans,
                                     cam.width, cam.height)
         return img, aux.radius, 0
-    ps = pair_structure if pair_structure is not None else _bins(proj, aux, cam)
+    ps = pair_structure if pair_structure is not None else _bins(proj, aux, cam, lim_wh)
     lists, lens = composite_tiles.tile_lists(ps.pair_gauss, ps.tile_start)
     px, py = (torch.from_numpy(a).to(xy.device)
               for a in composite_tiles.tile_pixel_coords(cam.width, cam.height))
@@ -172,7 +192,9 @@ def render_gaussians(cam: Camera, means3d, colors, unnorm_rotations, logit_opaci
     means3d are in the frame cam.w2c maps from. intrinsics_override (fx,
     fy, cx, cy) replaces cam's intrinsics (the image size stays cam's), and
     lim_wh the (width, height) of the projection's frustum clamp
-    (render.projection.project): a render of one band of a larger image.
+    (render.projection.project) and of the tile grid that sets the depth
+    key (binning.build_bins full_wh): a render of one band of a larger
+    image.
     pair_structure reuses an earlier binning as render_rgbd_sil does;
     means2d_dummy harvests the screen-space gradient as there."""
     img, radii, n_pairs = _render(cam, means3d, colors, unnorm_rotations, logit_opacities,
@@ -190,7 +212,8 @@ def render_gaussians(cam: Camera, means3d, colors, unnorm_rotations, logit_opaci
 
 def render_rgbd_sil(cam: Camera, means3d, rgb_colors, unnorm_rotations, logit_opacities,
                     log_scales, active, pair_structure: PairStructure | None = None,
-                    means2d_dummy=None, backend: str = "auto") -> RenderOutput:
+                    means2d_dummy=None, backend: str = "auto", intrinsics_override=None,
+                    lim_wh=None) -> RenderOutput:
     """Generic differentiable render of r, g, b, z, z^2 and the
     silhouette: project (plain PyTorch, so autograd carries the gradients
     to every input), bin under no_grad, composite with K1 forward and K2 ->
@@ -207,35 +230,44 @@ def render_rgbd_sil(cam: Camera, means3d, rgb_colors, unnorm_rotations, logit_op
     of K2's xy gradients in the reference's NDC half-extents: the 3DGS
     densification statistic (splatam_tpu/render/api.py:313-319;
     utils/slam_external.py:100-104). radii come from this call's
-    projection."""
+    projection. intrinsics_override and lim_wh as render_gaussians takes
+    them."""
     img, radii, n_pairs = _render(cam, means3d, rgb_colors, unnorm_rotations, logit_opacities,
-                                  log_scales, active, backend, means2d_dummy, True, None, None,
-                                  pair_structure)
+                                  log_scales, active, backend, means2d_dummy, True,
+                                  intrinsics_override, lim_wh, pair_structure)
     if backend in KERNEL_BACKENDS:
         return _public(img, radii, n_pairs)
     return RenderOutput(im=img[:3], depth=img[3], silhouette=img[4], depth_sq=img[5],
                         radii=radii, n_pairs=n_pairs)
 
 
-def render_rgbd_sil_pairspace(cam: Camera, ps: PairStructure, q, t) -> RenderOutput:
+def render_rgbd_sil_pairspace(cam: Camera, ps: PairStructure, q, t, intrinsics_override=None,
+                              lim_wh=None) -> RenderOutput:
     """Tracking render at pose (q, t) from the structure's per-pair world
     rows; gradients flow to (q, t) only. World-8 rows (isotropic map): the
     fused kernels project in-kernel. World-16 rows: project_pairs in
-    PyTorch, K1 and K2 on per-pair rows (composite.CompositePairs)."""
+    PyTorch, K1 and K2 on per-pair rows (composite.CompositePairs).
+    intrinsics_override and lim_wh as render_gaussians takes them."""
+    fx, fy, cx, cy = (intrinsics_override if intrinsics_override is not None
+                      else (cam.fx, cam.fy, cam.cx, cam.cy))
     if ps.world8 is not None:
-        img = fused_iso.composite_fused_pairs(ps.world8, ps, cam, q, t)
+        img = fused_iso.composite_fused_pairs(ps.world8, ps, cam, q, t, intrinsics_override,
+                                              lim_wh)
     else:
-        rows = pairspace.project_pairs(ps.world16, q, t, cam.fx, cam.fy, cam.cx, cam.cy,
-                                       cam.width, cam.height)
+        rows = pairspace.project_pairs(ps.world16, q, t, fx, fy, cx, cy, cam.width, cam.height,
+                                       lim_wh=lim_wh)
         img = composite.CompositePairs.apply(rows, ps.tile_start, cam.width, cam.height)
     return _public(img, _no_radii(ps), ps.n_pairs)
 
 
 def render_rgbd_sil_mapping_fused(cam: Camera, ps: PairStructure, means3d, rgb_colors,
-                                  logit_opacities, log_scales, active, q, t) -> RenderOutput:
+                                  logit_opacities, log_scales, active, q, t,
+                                  intrinsics_override=None, lim_wh=None) -> RenderOutput:
     """Mapping render (isotropic map): gradients flow to every Gaussian
     parameter through K5 and K3; the pose is a constant. Its radii are all
-    zero (see _no_radii)."""
+    zero (see _no_radii). intrinsics_override and lim_wh as
+    render_gaussians takes them."""
     img = fused_iso.composite_fused_gauss(
-        means3d, logit_opacities, log_scales, rgb_colors, active, ps, cam, q, t)
+        means3d, logit_opacities, log_scales, rgb_colors, active, ps, cam, q, t,
+        intrinsics_override, lim_wh)
     return _public(img, _no_radii(ps), ps.n_pairs)

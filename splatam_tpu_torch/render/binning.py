@@ -59,12 +59,19 @@ def quantized_depth(depth: torch.Tensor, bits: int, far: float = 100.0) -> torch
 
 
 def build_bins(proj: Projected, aux: ProjectedAux, width: int, height: int,
-               far: float = 100.0) -> Bins:
-    """Expand (gaussian, tile) pairs and sort them by (tile, depth) key."""
+               far: float = 100.0, full_wh: tuple | None = None) -> Bins:
+    """Expand (gaussian, tile) pairs and sort them by (tile, depth) key.
+
+    full_wh: the (width, height) of the image this one is a band of. Its
+    tile count, not the band's, sets the depth key's bits, so a band's
+    pairs composite in the full image's order: with the band's own (fewer)
+    tiles the key would keep one more depth bit and could part pairs that
+    the full image's key ties (and then orders by Gaussian index)."""
     device = proj.depth.device
     grid_x, grid_y = grid_shape(width, height)
     num_tiles = grid_x * grid_y
-    bits = depth_bits_for(num_tiles)
+    key_x, key_y = grid_shape(*full_wh) if full_wh is not None else (grid_x, grid_y)
+    bits = depth_bits_for(key_x * key_y)
     n = proj.depth.shape[0]
 
     rect_w = aux.rect_wh[:, 0]

@@ -329,10 +329,9 @@ def composite_forward(attrs, pair_gauss, tile_start, width: int, height: int):
         return composite_forward_plain(attrs, pair_gauss, tile_start, width, height)
     ch, gx, gy, _ = _check_rows(attrs, pair_gauss, tile_start, width, height)
     out = torch.empty((ch + 2, height, width), dtype=torch.float32, device=attrs.device)
-    err = _cuda.lib().composite_forward(
-        ch, attrs.data_ptr(), _ptr(pair_gauss), tile_start.data_ptr(),
-        gx, gy, width, height, out.data_ptr(), _cuda.stream_ptr(attrs))
-    _cuda.check(err, f"composite_forward (ch {ch})")
+    _cuda.launch(attrs, "composite_forward", ch, attrs.data_ptr(), _ptr(pair_gauss),
+                 tile_start.data_ptr(), gx, gy, width, height, out.data_ptr(),
+                 label=f"composite_forward (ch {ch})")
     composite_forward.launches[ch] += 1
     return out
 
@@ -367,10 +366,9 @@ def composite_backward(attrs, pair_gauss, tile_start, width: int, height: int, s
     _cuda.require(state, "state", torch.float32, (ch + 2, height, width))
     _cuda.require(g, "g", torch.float32, (ch + 1, height, width))
     out = torch.empty((n_pairs, 6 + ch), dtype=torch.float32, device=attrs.device)
-    err = _cuda.lib().composite_backward(
-        ch, attrs.data_ptr(), _ptr(pair_gauss), tile_start.data_ptr(), gx, gy, width, height,
-        state.data_ptr(), g.data_ptr(), out.data_ptr(), _cuda.stream_ptr(attrs))
-    _cuda.check(err, f"composite_backward (ch {ch})")
+    _cuda.launch(attrs, "composite_backward", ch, attrs.data_ptr(), _ptr(pair_gauss),
+                 tile_start.data_ptr(), gx, gy, width, height, state.data_ptr(), g.data_ptr(),
+                 out.data_ptr(), label=f"composite_backward (ch {ch})")
     composite_backward.launches[ch] += 1
     return out
 
@@ -411,10 +409,9 @@ def segment_reduce(dpair, dst, offsets, counts):
     _cuda.require(offsets, "offsets", torch.int32, (n,))
     _cuda.require(counts, "counts", torch.int32, (n,))
     out = torch.empty((n, k), dtype=torch.float32, device=dpair.device)
-    err = _cuda.lib().segment_reduce(
-        k, dpair.data_ptr(), dst.data_ptr(), offsets.data_ptr(), counts.data_ptr(), n,
-        out.data_ptr(), _cuda.stream_ptr(dpair))
-    _cuda.check(err, f"segment_reduce ({k} columns)")
+    _cuda.launch(dpair, "segment_reduce", k, dpair.data_ptr(), dst.data_ptr(),
+                 offsets.data_ptr(), counts.data_ptr(), n, out.data_ptr(),
+                 label=f"segment_reduce ({k} columns)")
     segment_reduce.launches[k] += 1
     return out
 

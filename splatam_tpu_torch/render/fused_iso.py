@@ -150,10 +150,9 @@ def fused_forward(world8, pose_vec, tile_start, width: int, height: int, pair_ga
         return fused_forward_plain(world8, pose_vec, tile_start, width, height, pair_gauss)
     gx, gy, _ = _check_common(world8, pose_vec, tile_start, width, height, pair_gauss)
     out = torch.empty((CH + 2, height, width), dtype=torch.float32, device=world8.device)
-    err = _cuda.lib().fused_forward(
-        world8.data_ptr(), _ptr(pair_gauss), pose_vec.data_ptr(), tile_start.data_ptr(), gx, gy,
-        width, height, out.data_ptr(), _cuda.stream_ptr(world8))
-    _cuda.check(err, "fused_forward")
+    _cuda.launch(world8, "fused_forward", world8.data_ptr(), _ptr(pair_gauss),
+                 pose_vec.data_ptr(), tile_start.data_ptr(), gx, gy, width, height,
+                 out.data_ptr())
     fused_forward.launches += 1
     return out
 
@@ -199,11 +198,9 @@ def fused_backward(world8, pose_vec, tile_start, width: int, height: int, state,
     _cuda.require(state, "state", torch.float32, (CH + 2, height, width))
     _cuda.require(g, "g", torch.float32, (CH + 1, height, width))
     out = torch.empty((n_pairs, W8), dtype=torch.float32, device=world8.device)
-    err = _cuda.lib().fused_backward(
-        world8.data_ptr(), _ptr(pair_gauss), pose_vec.data_ptr(), tile_start.data_ptr(), gx, gy,
-        width, height, state.data_ptr(), g.data_ptr(), out.data_ptr(),
-        _cuda.stream_ptr(world8))
-    _cuda.check(err, "fused_backward")
+    _cuda.launch(world8, "fused_backward", world8.data_ptr(), _ptr(pair_gauss),
+                 pose_vec.data_ptr(), tile_start.data_ptr(), gx, gy, width, height,
+                 state.data_ptr(), g.data_ptr(), out.data_ptr())
     fused_backward.launches += 1
     return out
 
@@ -271,23 +268,35 @@ class FusedGauss(torch.autograd.Function):
         return d_rows, None, None, None, None
 
 
-def _geom_for(cam):
-    limx = 1.3 * (cam.width / (2.0 * cam.fx))
-    limy = 1.3 * (cam.height / (2.0 * cam.fy))
-    return (cam.width, cam.height, (cam.fx, cam.fy, cam.cx, cam.cy, limx, limy))
+def _geom_for(cam, intrinsics_override=None, lim_wh=None):
+    """(width, height, (fx, fy, cx, cy, limx, limy)) of a render through
+    cam; intrinsics_override (fx, fy, cx, cy) and lim_wh (the frustum
+    clamp's width, height) as render.api.render_gaussians takes them (one
+    band of a larger image: cy shifted by the band's first row, the full
+    image's limits; parallel/spatial.py)."""
+    fx, fy, cx, cy = (intrinsics_override if intrinsics_override is not None
+                      else (cam.fx, cam.fy, cam.cx, cam.cy))
+    lim_w, lim_h = lim_wh if lim_wh is not None else (cam.width, cam.height)
+    limx = 1.3 * (lim_w / (2.0 * fx))
+    limy = 1.3 * (lim_h / (2.0 * fy))
+    return (cam.width, cam.height, (fx, fy, cx, cy, limx, limy))
 
 
-def composite_fused_pairs(world8, ps, cam, q, t):
+def composite_fused_pairs(world8, ps, cam, q, t, intrinsics_override=None, lim_wh=None):
     """Tracking fused render, differentiable in (q, t). Returns [6, H, W]:
-    r, g, b, z, z^2, silhouette."""
+    r, g, b, z, z^2, silhouette. intrinsics_override and lim_wh as
+    _geom_for takes them."""
     rmat = build_rotation(normalize(q)[None])[0]
-    return FusedPairs.apply(world8, rmat, t, ps.tile_start, _geom_for(cam))
+    return FusedPairs.apply(world8, rmat, t, ps.tile_start,
+                            _geom_for(cam, intrinsics_override, lim_wh))
 
 
 def composite_fused_gauss(means3d, logit_opacities, log_scales, rgb_colors, active,
-                          ps, cam, q, t):
+                          ps, cam, q, t, intrinsics_override=None, lim_wh=None):
     """Mapping fused render, differentiable in the Gaussian parameters.
-    Returns [6, H, W]: r, g, b, z, z^2, silhouette."""
+    Returns [6, H, W]: r, g, b, z, z^2, silhouette. intrinsics_override and
+    lim_wh as _geom_for takes them."""
     rows = pack_world8(means3d, logit_opacities, log_scales, rgb_colors, active)
     rmat = build_rotation(normalize(q.detach())[None])[0]
-    return FusedGauss.apply(rows, rmat, t.detach(), ps, _geom_for(cam))
+    return FusedGauss.apply(rows, rmat, t.detach(), ps,
+                            _geom_for(cam, intrinsics_override, lim_wh))

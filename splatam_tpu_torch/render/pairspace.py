@@ -37,10 +37,13 @@ def pack_world_rows(means3d, unnorm_rotations, logit_opacities, log_scales, rgb_
     )
 
 
-def project_pairs(world16, q, t, fx, fy, cx, cy, width: int, height: int):
+def project_pairs(world16, q, t, fx, fy, cx, cy, width: int, height: int,
+                  lim_wh: tuple | None = None):
     """EWA-project every row of world16 [P, 13] at pose (q, t) ->
     compositor rows [P, 11]: x, y, conic a, b, c, opacity, r, g, b, z, z^2.
-    Differentiable in (q, t); mirrors render.projection.project."""
+    Differentiable in (q, t); mirrors render.projection.project. lim_wh
+    is the (width, height) of the frustum clamp where it differs from the
+    image's (a band of a larger image passes the full image's)."""
     rmat = build_rotation(normalize(q)[None])[0]
     mw_x, mw_y, mw_z = world16[:, 0], world16[:, 1], world16[:, 2]
     px = rmat[0, 0] * mw_x + rmat[0, 1] * mw_y + rmat[0, 2] * mw_z + t[0]
@@ -66,8 +69,9 @@ def project_pairs(world16, q, t, fx, fy, cx, cy, width: int, height: int):
     def _vrk(i, j):
         return sum(wsig[i][k] * rmat[j, k] for k in range(3))
 
-    limx = 1.3 * (width / (2.0 * fx))
-    limy = 1.3 * (height / (2.0 * fy))
+    lim_w, lim_h = lim_wh if lim_wh is not None else (width, height)
+    limx = 1.3 * (lim_w / (2.0 * fx))
+    limy = 1.3 * (lim_h / (2.0 * fy))
     txtz = torch.clamp(px / safe_tz, -limx, limx)
     tytz = torch.clamp(py / safe_tz, -limy, limy)
     tx = txtz * safe_tz

@@ -54,10 +54,8 @@ def fwd2_plain(world8, pose_vec, tile_start, width: int, height: int):
 def _launch_forward(name, world8, pose_vec, tile_start, width, height):
     gx, gy, _ = _check_common(world8, pose_vec, tile_start, width, height)
     out = torch.empty((CH + 2, height, width), dtype=torch.float32, device=world8.device)
-    err = getattr(_cuda.lib(), name)(
-        world8.data_ptr(), pose_vec.data_ptr(), tile_start.data_ptr(), gx, gy,
-        width, height, out.data_ptr(), _cuda.stream_ptr(world8))
-    _cuda.check(err, name)
+    _cuda.launch(world8, name, world8.data_ptr(), pose_vec.data_ptr(), tile_start.data_ptr(),
+                 gx, gy, width, height, out.data_ptr())
     return out
 
 
@@ -105,9 +103,8 @@ def dma_walk(world8, tile_start, b: int):
     n_tiles = tile_start.shape[0] - 1
     out = torch.empty((n_tiles, C), dtype=torch.float32, device=world8.device)
     name = f"dma_walk{b}"
-    err = getattr(_cuda.lib(), name)(world8.data_ptr(), tile_start.data_ptr(), n_tiles,
-                                     out.data_ptr(), _cuda.stream_ptr(world8))
-    _cuda.check(err, name)
+    _cuda.launch(world8, name, world8.data_ptr(), tile_start.data_ptr(), n_tiles,
+                 out.data_ptr())
     dma_walk.launches[b] += 1
     return out
 

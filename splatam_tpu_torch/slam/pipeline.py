@@ -32,6 +32,7 @@ from splatam_tpu_torch.core.transforms import matrix_to_quaternion
 from splatam_tpu_torch.data import frame_to_tensors, make_datasets
 from splatam_tpu_torch.eval.evaluate import eval_sequence, render_at_pose, report_progress
 from splatam_tpu_torch.io.params_io import save_params, save_params_ckpt
+from splatam_tpu_torch.parallel import spatial
 from splatam_tpu_torch.slam import optim, steps, steps_gs
 from splatam_tpu_torch.slam.config import backfill_defaults
 from splatam_tpu_torch.slam.keyframes import keyframe_selection_overlap
@@ -132,18 +133,14 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _unported(config: dict) -> None:
-    """Raise for every configuration this slice does not run."""
-    if int(config["tpu"].get("spatial_shards", 0)) > 1:
-        raise NotImplementedError(
-            "row-sharded rendering is not ported yet (ROADMAP, module list item 1.11)")
-
-
 class SLAMRuntime:
     """Mutable state of one SLAM run, on one device: the card unless the
     caller asks for the CPU (`device="cpu"` runs the kernels' plain
     versions). Asking for the card where there is none raises; nothing
-    falls back to the CPU.
+    falls back to the CPU. With tpu.spatial_shards = n > 1 (0 or 1: one
+    image) tracking, densification and mapping render in n bands of rows
+    (parallel/spatial.py), placed round-robin over the visible cards from
+    `device`'s.
 
     `datasets` = (dataset, densify_dataset, tracking_dataset) takes the
     place of the config's (make_datasets); the live path passes its
@@ -153,7 +150,6 @@ class SLAMRuntime:
 
     def __init__(self, config: dict, device="cuda", datasets=None):
         self.config = config = backfill_defaults(config)
-        _unported(config)
         self.device = device = require_device(device, "SLAMRuntime")
         self.output_dir = os.path.join(config["workdir"], config["run_name"])
         self.eval_dir = os.path.join(self.output_dir, "eval")
@@ -177,6 +173,12 @@ class SLAMRuntime:
         self.first_frame_w2c = np.linalg.inv(pose_np)
         h, w = color_np.shape[0], color_np.shape[1]
         self.cam = setup_camera(w, h, self.intrinsics, None)
+        shards = int(config["tpu"]["spatial_shards"])
+        self.bands = spatial.make_bands(shards, device) if shards > 1 else None
+        if self.bands is not None:
+            print(f"[splatam-torch] rendering in {shards} row bands of "
+                  f"{spatial.band_rows(h, shards)} rows on "
+                  f"{', '.join(map(str, self.bands))}")
         # Densification and tracking cameras (splatam_tpu/slam/pipeline.py:
         # 367-392); the map starts from the densification frame.
         init_color, init_depth = color_np, depth_np
@@ -347,7 +349,8 @@ class SLAMRuntime:
                 col_c, dep_c = tr_color[:, ::factor, ::factor], tr_depth[::factor, ::factor]
             q, t, it_c, _, hist = steps.tracking_phase(
                 view, q, t, col_c, dep_c, cam_c, n_it, False, 0.0, lr_q, lr_t,
-                self.pcfg_track, self.rebin_every, record_hist=self.record_hist)
+                self.pcfg_track, self.rebin_every, record_hist=self.record_hist,
+                bands=self.bands)
             iters += it_c
             hists.append(hist)
         best_q, best_t, it_f, _, hist = steps.tracking_phase(
@@ -355,7 +358,7 @@ class SLAMRuntime:
             bool(cfg_t["use_depth_loss_thres"]), float(cfg_t["depth_loss_thres"]),
             lr_q, lr_t, self.pcfg_track, self.rebin_every,
             lr_decay_frac=float(cfg_t.get("lr_decay_frac", 1.0)),
-            record_hist=self.record_hist,
+            record_hist=self.record_hist, bands=self.bands,
         )
         self.iters_run = iters + it_f
         self.cam_rots[time_idx] = best_q.cpu().numpy()
@@ -378,7 +381,7 @@ class SLAMRuntime:
         cap = self.gm.capacity
         self.gm, self.timestep = steps.densify_growing(
             self.gm, self.timestep, d_color, d_depth, q, t, time_idx, self.densify_cam,
-            float(self.config["mapping"]["sil_thres"]))
+            float(self.config["mapping"]["sil_thres"]), self.bands)
         self._report_growth(cap)
 
     def select_keyframes(self, time_idx: int, depth_np: np.ndarray) -> list:
@@ -453,7 +456,7 @@ class SLAMRuntime:
             view, self.kf_colors, self.kf_depths, slots, qs, ts, self.scene_radius,
             self.cam, num_iters, self.pcfg_map, self.prune_cfg, lrs, struct_qs, struct_ts,
             iter_idx, record_hist=self.record_hist, opt_state=opt_state, gsvars=gsvars,
-            start_iter=start_iter, track_stats=track_stats)
+            start_iter=start_iter, track_stats=track_stats, bands=self.bands)
 
     def _map_frame_3dgs(self, time_idx: int, selected: list, num_iters: int, lrs: tuple):
         """Mapping with 3DGS clone/split between chunks (splatam_tpu/slam/

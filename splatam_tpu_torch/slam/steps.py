@@ -7,6 +7,10 @@ here each phase is a Python loop over iterations whose renders launch the
 CUDA kernels. Host syncs are kept to what the control flow needs: one per
 structure build (the exact pair count), the depth_loss_thres check, and
 densification's candidate count.
+
+Every phase takes `bands` (parallel.spatial.make_bands; None = one image):
+its renders then run per band of rows and the loss on the gathered image,
+as the JAX package's phases do with a mesh.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from splatam_tpu_torch.core.camera import Camera
 from splatam_tpu_torch.core.gaussians import GaussianMap, grow_with_timestep
 from splatam_tpu_torch.core.losses import calc_ssim
 from splatam_tpu_torch.core.transforms import build_rotation, normalize, quat_mult
+from splatam_tpu_torch.parallel import spatial
 from splatam_tpu_torch.render import api, pairspace
 from splatam_tpu_torch.render.fused_iso import pack_world8
 from splatam_tpu_torch.slam import optim
@@ -68,10 +73,10 @@ def _median_lower(x: torch.Tensor) -> torch.Tensor:
     return torch.sort(flat).values[(flat.shape[0] - 1) // 2]
 
 
-def get_loss(gm: GaussianMap, q, t, color, depth_gt, cam: Camera, pcfg: PhaseConfig,
-             tracking: bool, mapping: bool, pair_structure: api.PairStructure | None = None,
-             means2d_dummy=None):
-    """Reference get_loss, routed as the JAX package routes it: tracking
+def loss_render(gm: GaussianMap, q, t, cam: Camera, tracking: bool, mapping: bool,
+                pair_structure: api.PairStructure | None = None, means2d_dummy=None,
+                bands: list | None = None) -> api.RenderOutput:
+    """get_loss's render, routed as the JAX package routes it: tracking
     with a world-8/16 structure renders in pair space (gradients to the
     pose), mapping an isotropic map with a structure and no means2d_dummy
     takes the fused mapping render, and everything else the generic render
@@ -80,22 +85,38 @@ def get_loss(gm: GaussianMap, q, t, color, depth_gt, cam: Camera, pcfg: PhaseCon
     means2d_dummy (the 3DGS statistics harvest, api.render_rgbd_sil) keeps
     mapping on the generic render: the fused render's world-space backward
     forms no per-Gaussian screen gradient and its radii are all zero
-    (splatam_tpu/slam/steps.py:140-150)."""
-    ps = pair_structure
-    if tracking and ps is not None and (ps.world8 is not None or ps.world16 is not None):
-        out = api.render_rgbd_sil_pairspace(cam, ps, q, t)
-    elif mapping and ps is not None and gm.isotropic and means2d_dummy is None:
-        out = api.render_rgbd_sil_mapping_fused(
-            cam, ps, gm.means3d, gm.rgb_colors, gm.logit_opacities,
-            gm.log_scales, gm.active, q, t)
-    else:
-        means_cam, rots_cam = transform_to_frame(gm, q, t, not tracking, tracking)
-        params_grad = mapping or not tracking
-        keep = (lambda x: x) if params_grad else (lambda x: x.detach())
-        out = api.render_rgbd_sil(cam, means_cam, keep(gm.rgb_colors), rots_cam,
-                                  keep(gm.logit_opacities), keep(gm.log_scales), gm.active,
-                                  pair_structure=ps, means2d_dummy=means2d_dummy)
+    (splatam_tpu/slam/steps.py:140-150).
 
+    With `bands`, each render runs per band (parallel.spatial) and
+    pair_structure is loss_pair_structure's per-band list."""
+    ps = head = pair_structure
+    if bands is not None and ps is not None:
+        spatial.check_structs(bands, ps)
+        head = ps[0]
+    if tracking and head is not None and (head.world8 is not None or head.world16 is not None):
+        return (api.render_rgbd_sil_pairspace(cam, ps, q, t) if bands is None else
+                spatial.render_rgbd_sil_pairspace_sharded(bands, cam, ps, q, t))
+    if mapping and ps is not None and gm.isotropic and means2d_dummy is None:
+        args = (gm.means3d, gm.rgb_colors, gm.logit_opacities, gm.log_scales, gm.active, q, t)
+        return (api.render_rgbd_sil_mapping_fused(cam, ps, *args) if bands is None else
+                spatial.render_rgbd_sil_mapping_fused_sharded(bands, cam, ps, *args))
+    means_cam, rots_cam = transform_to_frame(gm, q, t, not tracking, tracking)
+    params_grad = mapping or not tracking
+    keep = (lambda x: x) if params_grad else (lambda x: x.detach())
+    args = (means_cam, keep(gm.rgb_colors), rots_cam, keep(gm.logit_opacities),
+            keep(gm.log_scales), gm.active)
+    if bands is None:
+        return api.render_rgbd_sil(cam, *args, pair_structure=ps, means2d_dummy=means2d_dummy)
+    return spatial.render_rgbd_sil_sharded(bands, cam, *args, means2d_dummy=means2d_dummy,
+                                           pair_structure=ps)
+
+
+def get_loss(gm: GaussianMap, q, t, color, depth_gt, cam: Camera, pcfg: PhaseConfig,
+             tracking: bool, mapping: bool, pair_structure: api.PairStructure | None = None,
+             means2d_dummy=None, bands: list | None = None):
+    """Reference get_loss on loss_render's image (with `bands`, the loss
+    below runs once, on the gathered image)."""
+    out = loss_render(gm, q, t, cam, tracking, mapping, pair_structure, means2d_dummy, bands)
     depth = out.depth
     silhouette = out.silhouette
     uncertainty = (out.depth_sq - depth * depth).detach()
@@ -144,34 +165,36 @@ def get_loss(gm: GaussianMap, q, t, color, depth_gt, cam: Camera, pcfg: PhaseCon
 # ---------------------------------------------------------------------------
 
 
-def loss_pair_structure(gm: GaussianMap, q, t, cam: Camera,
-                        with_world16: bool = False) -> api.PairStructure:
+def loss_pair_structure(gm: GaussianMap, q, t, cam: Camera, with_world16: bool = False,
+                        bands: list | None = None):
     """The reusable binning structure for a get_loss render at this pose and
     parameter snapshot; with_world16 also gathers the world rows per sorted
     pair for the pair-space tracking render (tracking's rebin sites):
-    world-8 rows for an isotropic map, world-16 rows otherwise."""
+    world-8 rows for an isotropic map, world-16 rows otherwise. With
+    `bands`, the list of the bands' structures, each gathering its own
+    rows (parallel.spatial.compute_pair_structure_sharded)."""
     with torch.no_grad():
         means_cam, rots_cam = transform_to_frame(gm, q, t, False, False)
-        ps = api.compute_pair_structure(cam, means_cam, rots_cam, gm.logit_opacities,
-                                        gm.log_scales, gm.active)
-        if with_world16:
-            idx = ps.pair_gauss.long()
-            if gm.isotropic:
-                w8 = pack_world8(gm.means3d, gm.logit_opacities, gm.log_scales,
-                                 gm.rgb_colors, gm.active)
-                ps = ps._replace(world8=w8[idx].contiguous())
-            else:
-                w16 = pairspace.pack_world_rows(gm.means3d, gm.unnorm_rotations,
-                                                gm.logit_opacities, gm.log_scales,
-                                                gm.rgb_colors, gm.active)
-                ps = ps._replace(world16=w16[idx].contiguous())
-    return ps
+        rows8 = rows16 = None
+        if with_world16 and gm.isotropic:
+            rows8 = pack_world8(gm.means3d, gm.logit_opacities, gm.log_scales, gm.rgb_colors,
+                                gm.active)
+        elif with_world16:
+            rows16 = pairspace.pack_world_rows(gm.means3d, gm.unnorm_rotations,
+                                               gm.logit_opacities, gm.log_scales,
+                                               gm.rgb_colors, gm.active)
+        args = (cam, means_cam, rots_cam, gm.logit_opacities, gm.log_scales, gm.active)
+        if bands is not None:
+            return spatial.compute_pair_structure_sharded(bands, *args, world_rows=rows16,
+                                                          world_rows8=rows8)
+        return api.compute_pair_structure(*args, world_rows=rows16, world_rows8=rows8)
 
 
 def tracking_phase(gm: GaussianMap, q0, t0, color, depth_gt, cam: Camera, num_iters: int,
                    use_depth_loss_thres: bool, depth_loss_thres: float, lr_q: float,
                    lr_t: float, pcfg: PhaseConfig, rebin_every: int,
-                   lr_decay_frac: float = 1.0, record_hist: bool = False):
+                   lr_decay_frac: float = 1.0, record_hist: bool = False,
+                   bands: list | None = None):
     """Tracking optimization for one frame: fresh Adam on (q, t); the
     best-loss candidate pairs the post-step pose with the pre-step loss (a
     reference quirk kept); optional one-time doubling of the iteration count
@@ -188,17 +211,19 @@ def tracking_phase(gm: GaussianMap, q0, t0, color, depth_gt, cam: Camera, num_it
     gm = GaussianMap(*(a.detach() for a in gm))
     qt = (q0.detach().clone(), t0.detach().clone())
     st = optim.adam_init(qt)
-    ps = loss_pair_structure(gm, q0, t0, cam, with_world16=True) if use_rebin else None
+    ps = (loss_pair_structure(gm, q0, t0, cam, with_world16=True, bands=bands)
+          if use_rebin else None)
     best_q, best_t = q0.detach().clone(), t0.detach().clone()
     min_loss = torch.tensor(1e20, dtype=torch.float32, device=q0.device)
     hist = torch.zeros((2 * num_iters, 3), device=q0.device) if record_hist else None
     limit, it = num_iters, 0
     while it < limit:
         if use_rebin and it > 0 and it % rebin_every == 0:
-            ps = loss_pair_structure(gm, qt[0], qt[1], cam, with_world16=True)
+            ps = loss_pair_structure(gm, qt[0], qt[1], cam, with_world16=True, bands=bands)
         q = qt[0].requires_grad_(True)
         t = qt[1].requires_grad_(True)
-        loss, aux = get_loss(gm, q, t, color, depth_gt, cam, pcfg, True, False, ps)
+        loss, aux = get_loss(gm, q, t, color, depth_gt, cam, pcfg, True, False, ps,
+                             bands=bands)
         grads = torch.autograd.grad(loss, (q, t))
         decay = 1.0
         if lr_decay_frac < 1.0:
@@ -259,7 +284,8 @@ def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs,
                   scene_radius: float, cam: Camera, num_iters: int, pcfg: PhaseConfig,
                   prune_cfg: PruneConfig, lrs: tuple, struct_qs=None, struct_ts=None,
                   iter_struct_idx=None, record_hist: bool = False, opt_state=None,
-                  gsvars=None, start_iter: int = 0, track_stats: bool = False):
+                  gsvars=None, start_iter: int = 0, track_stats: bool = False,
+                  bands: list | None = None):
     """Mapping iterations for one frame over keyframes drawn by the host.
 
     iter_slots: per-iteration keyframe-store slot. With a distinct-keyframe
@@ -289,7 +315,8 @@ def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs,
     gm = GaussianMap(*(a.detach() for a in gm))
     structs = None
     if struct_qs is not None:
-        structs = [loss_pair_structure(gm, sq, st_, cam) for sq, st_ in zip(struct_qs, struct_ts)]
+        structs = [loss_pair_structure(gm, sq, st_, cam, bands=bands)
+                   for sq, st_ in zip(struct_qs, struct_ts)]
     keys = tuple(k for k in MAP_PARAMS if not (gm.isotropic and k == "unnorm_rotations"))
     plrs = tuple(lrs[MAP_PARAMS.index(k)] for k in keys)
     params = {k: getattr(gm, k) for k in keys}
@@ -311,7 +338,7 @@ def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs,
         dummy = (torch.zeros((gm.capacity, 2), device=dev, requires_grad=True)
                  if track_stats else None)
         loss, aux = get_loss(gm_i, iter_qs[i], iter_ts[i], color, depth_gt, cam, pcfg,
-                             False, True, ps, means2d_dummy=dummy)
+                             False, True, ps, means2d_dummy=dummy, bands=bands)
         wrt = tuple(p.values()) + ((dummy,) if track_stats else ())
         grads = torch.autograd.grad(loss, wrt)
         if track_stats:
@@ -372,23 +399,41 @@ def backproject_pointcloud(color, depth, fx, fy, cx, cy, c2w):
 
 
 @torch.no_grad()
-def densify_step(gm: GaussianMap, timestep, color, depth_gt, q, t, time_idx: int,
-                 cam: Camera, sil_thres: float):
-    """add_new_gaussians (scripts/splatam.py:378-420): backproject every
-    pixel the map does not explain into the lowest free slots.
-
-    Returns (gm, timestep, n_added, n_dropped); with n_dropped > 0 nothing
-    is written and the caller grows the capacity and retries."""
+def densify_render(gm: GaussianMap, q, t, cam: Camera, bands: list | None = None
+                   ) -> api.RenderOutput:
+    """densify_step's render of the map's live span at pose (q, t); with
+    `bands`, per band."""
     span = gm.span()
     view = GaussianMap(*(a[:span] for a in gm))
     means_cam, rots_cam = transform_to_frame(view, q, t, False, False)
-    out = api.render_rgbd_sil(cam, means_cam, view.rgb_colors, rots_cam,
-                              view.logit_opacities, view.log_scales, view.active)
+    args = (means_cam, view.rgb_colors, rots_cam, view.logit_opacities, view.log_scales,
+            view.active)
+    return (api.render_rgbd_sil(cam, *args) if bands is None else
+            spatial.render_rgbd_sil_sharded(bands, cam, *args))
+
+
+def densify_candidates(out: api.RenderOutput, depth_gt, sil_thres: float) -> torch.Tensor:
+    """[H, W] the pixels densification backprojects: valid depth where
+    the render's silhouette is below sil_thres, or where it lies in front
+    of the observed depth by more than 50 x the lower median depth error."""
     valid = depth_gt > 0
     depth_error = torch.abs(depth_gt - out.depth) * valid
     non_presence = (out.silhouette < sil_thres) | (
         (out.depth > depth_gt) & (depth_error > 50.0 * _median_lower(depth_error)))
-    cand = torch.nonzero((non_presence & valid).reshape(-1))[:, 0]
+    return non_presence & valid
+
+
+@torch.no_grad()
+def densify_step(gm: GaussianMap, timestep, color, depth_gt, q, t, time_idx: int,
+                 cam: Camera, sil_thres: float, bands: list | None = None):
+    """add_new_gaussians (scripts/splatam.py:378-420): backproject every
+    pixel the map does not explain (densify_candidates of densify_render)
+    into the lowest free slots; with `bands`, its render runs per band.
+
+    Returns (gm, timestep, n_added, n_dropped); with n_dropped > 0 nothing
+    is written and the caller grows the capacity and retries."""
+    out = densify_render(gm, q, t, cam, bands)
+    cand = torch.nonzero(densify_candidates(out, depth_gt, sil_thres).reshape(-1))[:, 0]
     free = torch.nonzero(~gm.active)[:, 0]
     n_cand, n_free = cand.shape[0], free.shape[0]
     if n_cand > n_free:
@@ -415,13 +460,13 @@ def densify_step(gm: GaussianMap, timestep, color, depth_gt, q, t, time_idx: int
 
 
 def densify_growing(gm: GaussianMap, timestep, color, depth_gt, q, t, time_idx: int,
-                    cam: Camera, sil_thres: float):
+                    cam: Camera, sil_thres: float, bands: list | None = None):
     """densify_step, the capacity doubled (grow_with_timestep) and the step
     retried until every candidate finds a free slot. Returns (gm,
     timestep)."""
     while True:
         gm2, ts2, _, n_dropped = densify_step(gm, timestep, color, depth_gt, q, t, time_idx,
-                                              cam, sil_thres)
+                                              cam, sil_thres, bands)
         if n_dropped == 0:
             return gm2, ts2
         cap = gm.capacity

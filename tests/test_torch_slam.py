@@ -190,13 +190,12 @@ def test_add_new_gaussians_off_skips_densification(tmp_path):
     ({"tracking": {"visualize_tracking_loss": True}}, "module list item 1.10"),
 ])
 def test_unported_configurations_raise(tmp_path, override, item):
-    """A configuration of a module item still to port raises, naming the
-    item. Items 1.8 (in-loop 3DGS densification) and 1.10
-    (tracking.visualize_tracking_loss) are ported: their configurations
-    build (tests/test_torch_gs_loop.py and tests/test_torch_tracking_viz.py
-    run them)."""
-    if item != "module list item 1.11":
-        assert SLAMRuntime(_config(tmp_path, **override), "cpu").gs_passes == []
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        SLAMRuntime(_config(tmp_path, **override), "cpu")
+    """The configurations of the module items that were once refused build
+    now that their items are ported: 1.8 (in-loop 3DGS densification), 1.10
+    (tracking.visualize_tracking_loss) and 1.11 (row bands; the runtime
+    places two bands). tests/test_torch_gs_loop.py,
+    tests/test_torch_tracking_viz.py and tests/test_torch_spatial_runtime.py
+    run them."""
+    rt = SLAMRuntime(_config(tmp_path, **override), "cpu")
+    assert rt.gs_passes == []
+    assert rt.bands == ([torch.device("cpu")] * 2 if item == "module list item 1.11" else None)

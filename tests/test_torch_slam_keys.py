@@ -1,7 +1,9 @@
 """Config keys the port carries, each held against the JAX package end to
 end: 2 frames of test_torch_slam.py's micro config (6 tracking and 8 mapping
 iterations at 64x48, rebin_every=8, so the fused path) with one key changed;
-use_depth_loss_thres also at rebin_every=1 (the generic render).
+use_depth_loss_thres also at rebin_every=1 (the generic render). The same
+keys at rebin_every=1 and on an anisotropic map: test_torch_slam_keys_rebin1.py
+and test_torch_slam_keys_aniso.py (check_key with a variant).
 
 Same tolerance as test_slam_loop_matches_jax: poses within 1e-4, equal
 active counts per frame, equal keyframes. Each case also checks that its
@@ -61,31 +63,50 @@ CASES = {
 IGNORED = {"use_l1_off"}
 
 
+def _merge(case: dict, variant: dict) -> dict:
+    """The case's overrides with the variant's on top (sections merged)."""
+    out = dict(case)
+    for key, value in variant.items():
+        out[key] = {**case.get(key, {}), **value} if isinstance(value, dict) else value
+    return out
+
+
 @pytest.fixture(scope="module")
 def bases(tmp_path_factory):
-    """base(rebin_every): the port's run of the micro config unchanged but
-    for rebin_every, made once per value."""
+    """base(rebin_every, distribution): the port's run of the micro config
+    unchanged but for rebin_every and gaussian_distribution, made once per
+    pair."""
     runs = {}
 
-    def base(rebin_every):
-        if rebin_every not in runs:
+    def base(rebin_every, distribution="isotropic"):
+        key = (rebin_every, distribution)
+        if key not in runs:
             seed_everything(0)
             rt = SLAMRuntime(_config(tmp_path_factory.mktemp("base"),
-                                     tpu={"rebin_every": rebin_every}), "cpu")
+                                     tpu={"rebin_every": rebin_every},
+                                     gaussian_distribution=distribution), "cpu")
             active = []
             for i in range(FRAMES):
                 run_frame(rt, i)
                 active.append(rt.gm.num_active())
-            runs[rebin_every] = rt, active
-        return runs[rebin_every]
+            runs[key] = rt, active
+        return runs[key]
 
     return base
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_config_key_matches_jax(tmp_path, bases, case):
-    base = bases(CASES[case].get("tpu", {}).get("rebin_every", 8))
-    rt, jrt, t_active, j_active = run_both(tmp_path, frames=FRAMES, **CASES[case])
+    check_key(tmp_path, bases, case)
+
+
+def check_key(tmp_path, bases, case: str, variant: dict | None = None):
+    """CASES[case] with the variant's overrides (a rebin_every, a
+    distribution) in both packages; see the module docstring."""
+    overrides = _merge(CASES[case], variant or {})
+    base = bases(overrides.get("tpu", {}).get("rebin_every", 8),
+                 overrides.get("gaussian_distribution", "isotropic"))
+    rt, jrt, t_active, j_active = run_both(tmp_path, frames=FRAMES, **overrides)
     assert t_active == j_active
     np.testing.assert_allclose(rt.cam_rots[:FRAMES], jrt.cam_rots[:FRAMES], atol=1e-4)
     np.testing.assert_allclose(rt.cam_trans[:FRAMES], jrt.cam_trans[:FRAMES], atol=1e-4)

@@ -107,12 +107,6 @@ def test_rgbd_slam_writes_a_panel_per_tracked_frame(tmp_path, monkeypatch, plain
     assert strip(metrics) == strip(ref_metrics)
 
 
-def test_only_row_sharding_is_refused(tmp_path):
-    pipeline._unported(_config(tmp_path, tracking={"visualize_tracking_loss": True}))
-    with pytest.raises(NotImplementedError, match="1.11"):
-        pipeline._unported(_config(tmp_path, tpu={"spatial_shards": 2}))
-
-
 def test_jet_matches_matplotlib():
     import matplotlib.cm
 
