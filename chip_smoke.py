@@ -181,13 +181,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
      profile_sharded at --shards 1 2 4 (320x240); (f) profile_map_ablate
      (950,272 Gaussians, 1200x680), probe_saturation --frames 3 and
      exp_gather's table gathers and its tracking-gather comparison on path
-     1's final map, each at reduced depth.
+     1's final map, each at reduced depth;
+ 19. path 16, bench.py and entry() in the port: (a) `python -m
+     splatam_tpu_torch.scripts.bench` in a process of its own at its
+     defaults (1200x680, 12 frames, 40/60, rebin 8, isotropic): exit 0,
+     bench.py's JSON keys with `device`, finite numbers, path 1's routing
+     (K4, K5, K3-8 and K1 launched, K2 not); (b) the same with
+     BENCH_TILE_CULL=1: its s/frame beside (a)'s, the share of pairs culled
+     per frame, n_gaussians_final within 1% of (a)'s; (c) on path 1's final
+     map at its last pose, four binnings (classic, tile_cull, direct_j = 2,
+     both): each structure's pairs in the binning's order (keys recomputed
+     from the projection), its pairs, culled share and build time; the
+     tracking render in pair space (K4/K5), mapping's fused render
+     (K4/K5/K3-8) and the generic render with the 3DGS harvest
+     (K1/K2/K3-11) forward and backward under one seeded cotangent, each
+     variant's images and gradients against the classic's within TOL
+     outside the tiles whose tied pairs the J-slot order reorders; then
+     every kernel on the tile_cull and on the combined structures against
+     its plain version; (d) entry() on the card: shapes, finite values, K1
+     alone launched.
 A device-busy time (phases 6, 7, 10) counts only where torch.profiler
 recorded every launch of the port's kernels that the wrappers counted in
 its window; elsewhere it prints as unverified.
 Each path's launch counts (and those of phase 9's probe run, of path
 4's eval and resume, and of path 5's NVS eval) are set to 0 just before it
-(or start at 0 in a process of its own) and read just after; the kernels the path must launch have
+(or start at 0 in a process of its own: paths 5 and 12, path 16's
+benches) and read just after; the kernels the path must launch have
 to be > 0 from frame 1 on, the fused kernels must stay at 0 on paths 2 and
 3 (the routing), the probe kernels at 0 on paths 1-3, and K1, K2 and K3
 at any width but the SLAM loop's at 0 on every path but path 11.
@@ -391,6 +410,16 @@ PATH_KERNELS = {
     "path 15 exp_gather": (("fused_forward", "fused_backward"),
                            ("composite_forward", "composite_backward", "segment_reduce",
                             "segment_reduce11", *PROBES)),
+    # path 16: the bench at its defaults is path 1's routing, with and
+    # without the cull; the variants' renders run all three routes; the
+    # entry check renders through K1 alone
+    "path 16 bench": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
+                      ("composite_backward", "segment_reduce11", *PROBES)),
+    "path 16 bench cull": (("composite_forward", "fused_forward", "fused_backward",
+                            "segment_reduce"), ("composite_backward", "segment_reduce11", *PROBES)),
+    "path 16 variants": (("composite_forward", "composite_backward", "segment_reduce11",
+                          "fused_forward", "fused_backward", "segment_reduce"), PROBES),
+    "path 16 entry": EVAL,
 }
 # No path but path 11 launches K1, K2 or K3 at another width.
 PATH_KERNELS = {k: (must, (*never, *WIDE)) for k, (must, never) in PATH_KERNELS.items()}
@@ -422,18 +451,21 @@ def event_ms(fn, iters: int, warmup: int) -> float:
     return time_calls(fn, torch.device("cuda"), iters, reps=1, warmup=warmup).event
 
 
-def kernel_inputs(gm, q, t, cam, seed: int) -> SimpleNamespace:
+def kernel_inputs(gm, q, t, cam, seed: int, bin_opts=None) -> SimpleNamespace:
     """Every SLAM-loop kernel's inputs at one scene, from the port's own
     structure builds and renders: the fused path's (world-8 structure, the
     per-Gaussian world rows it was gathered from, pose, K4's state, seeded
-    cotangents, K5's per-pair gradients) and generic_inputs'."""
+    cotangents, K5's per-pair gradients) and generic_inputs'; every
+    structure binned with `bin_opts` (render.binning.BinOptions; None: the
+    classic binning)."""
     import torch
 
-    from splatam_tpu_torch.render import fused_iso
+    from splatam_tpu_torch.render import api, fused_iso
     from splatam_tpu_torch.scripts import scene
 
     w, h = cam.width, cam.height
-    ps, pose = scene.fused_inputs(gm, q, t, cam)
+    bin_opts = bin_opts or api.CLASSIC
+    ps, pose = scene.fused_inputs(gm, q, t, cam, bin_opts)
     state = fused_iso.fused_forward(ps.world8, pose, ps.tile_start, w, h)
     gen = torch.Generator(q.device).manual_seed(seed)
     g = torch.randn((6, h, w), device=q.device, generator=gen)
@@ -441,15 +473,16 @@ def kernel_inputs(gm, q, t, cam, seed: int) -> SimpleNamespace:
     with torch.no_grad():
         rows8 = fused_iso.pack_world8(gm.means3d, gm.logit_opacities, gm.log_scales,
                                       gm.rgb_colors, gm.active)
-    x = generic_inputs(gm, q, t, cam, gen)
+    x = generic_inputs(gm, q, t, cam, gen, bin_opts)
     x.__dict__.update(ps=ps, pose=pose, state=state, g=g, dpair=dpair, rows8=rows8)
     return x
 
 
-def generic_inputs(gm, q, t, cam, gen) -> SimpleNamespace:
+def generic_inputs(gm, q, t, cam, gen, bin_opts=None) -> SimpleNamespace:
     """The generic render's kernel inputs at one scene, isotropic or not:
-    K1's attrs and bins, K1's state, cotangents with the silhouette's drawn
-    from gen, K2's output feeding K3 at 11 columns."""
+    K1's attrs and bins (binned with `bin_opts`, None: classic), K1's state,
+    cotangents with the silhouette's drawn from gen, K2's output feeding K3
+    at 11 columns."""
     import torch
 
     from splatam_tpu_torch.render import api, binning, composite
@@ -459,7 +492,8 @@ def generic_inputs(gm, q, t, cam, gen) -> SimpleNamespace:
     means_cam, rots = steps.transform_to_frame(gm, q, t, False, False)
     proj, aux = api.project_gaussians(cam, means_cam, rots, gm.logit_opacities,
                                       gm.log_scales, gm.active)
-    b = binning.build_bins(proj, aux, w, h)
+    opts = bin_opts or binning.BinOptions()
+    b = binning.build_bins(proj, aux, w, h, tile_cull=opts.tile_cull, direct_j=opts.direct_j)
     d = proj.depth[:, None]
     attrs = torch.cat([proj.xy, proj.conic, proj.opacity[:, None], gm.rgb_colors, d, d * d],
                       1).contiguous()
@@ -2579,6 +2613,295 @@ def drive_bands(work: str, device, final_map, final_frame) -> dict:
     return launches
 
 
+# Path 16 (a, b): bench.py's JSON keys (bench.py:163-179) and the port's `device`
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "aggregation", "warmup_frames",
+              "rebin_every", "frame0_s", "max_frame_s", "n_gaussians_final", "device"}
+# Path 16 (c): the binning variants (render.binning.BinOptions); the J-slot
+# order's, and the structure holding the same pairs in the classic order
+VARIANTS = {"classic": {}, "tile_cull": {"tile_cull": True}, "direct_j=2": {"direct_j": 2},
+            "both": {"tile_cull": True, "direct_j": 2}}
+ORDER_OF = {"direct_j=2": "classic", "both": "tile_cull"}
+
+
+def run_bench(label: str, **env) -> tuple:
+    """`python -m splatam_tpu_torch.scripts.bench` at its defaults (and
+    `env`) in a process of its own, its stderr echoed but the launch line:
+    fatal unless it exits 0 and prints bench.py's keys with `device` and
+    finite numbers, having launched PATH_KERNELS[label]'s kernels and no
+    other. Returns (its JSON, its launch counts, its per-frame lines)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    sys.stdout.flush()
+    res = subprocess.run([sys.executable, "-m", "splatam_tpu_torch.scripts.bench"], cwd=ROOT,
+                         env=dict(os.environ, **env), capture_output=True, text=True,
+                         timeout=900)
+    lines = res.stderr.splitlines()
+    for line in lines:
+        if not line.startswith("launches: "):
+            print(f"  [{label}] {line}")
+    if res.returncode != 0:
+        fail(f"{label}: the bench exited {res.returncode}")
+    result = json.loads(res.stdout.strip().splitlines()[-1])
+    numbers = [v for k, v in result.items() if isinstance(v, (int, float))]
+    if set(result) != BENCH_KEYS or not all(math.isfinite(v) for v in numbers):
+        fail(f"{label}: the bench's result {result}")
+    launches = json.loads(next(ln for ln in lines if ln.startswith("launches: "))[10:])
+    check_launches(label, launches)
+    print(f"{label}: {result['value']} s/frame ({result['metric']}), frame0 "
+          f"{result['frame0_s']} s, max {result['max_frame_s']} s, "
+          f"{result['n_gaussians_final']} Gaussians, {result['device']}; "
+          f"{time.time() - t0:.1f} s with its start", flush=True)
+    return result, launches, [ln for ln in lines if ln.startswith("frame ")]
+
+
+def variant_renders(view, q, t, cam, opts, cot) -> dict:
+    """The three routes' renders on one binning variant's structures of
+    the map at pose (q, t), forward and backward under the cotangent cot
+    [6, H, W] (on the rows r, g, b, depth, silhouette, depth^2): tracking in
+    pair space on the world-8 structure (K4, K5; the pose's gradient),
+    mapping's fused render (K4, K5, K3-8) and the generic render with the
+    3DGS harvest (K1, K2, K3-11) on the mapping structure (each Gaussian
+    parameter's gradient). Returns {route: (image rows, gradient
+    columns [N, k] (the pose's [4, 1] and [3, 1]) ...)} and the structures."""
+    import torch
+
+    from splatam_tpu_torch.render import api
+    from splatam_tpu_torch.slam import steps
+
+    ps_w = steps.loss_pair_structure(view, q, t, cam, with_world16=True, bin_opts=opts)
+    ps_m = steps.loss_pair_structure(view, q, t, cam, bin_opts=opts)
+    keys = ("means3d", "rgb_colors", "logit_opacities", "log_scales")
+
+    def rows(out):
+        return torch.cat([out.im, out.depth[None], out.silhouette[None], out.depth_sq[None]])
+
+    def run(out, wrt):
+        img = rows(out)
+        grads = torch.autograd.grad(img, wrt, cot)
+        return img.detach(), [g.reshape(g.shape[0], -1) for g in grads]
+
+    res = {}
+    q_, t_ = q.clone().requires_grad_(True), t.clone().requires_grad_(True)
+    res["tracking"] = run(api.render_rgbd_sil_pairspace(cam, ps_w, q_, t_), (q_, t_))
+    params = {k: getattr(view, k).detach().requires_grad_(True) for k in keys}
+    res["mapping fused"] = run(api.render_rgbd_sil_mapping_fused(
+        cam, ps_m, *params.values(), view.active, q, t), tuple(params.values()))
+    params = {k: getattr(view, k).detach().requires_grad_(True) for k in keys}
+    dummy = torch.zeros((view.means3d.shape[0], 2), device=q.device, requires_grad=True)
+    out = steps.loss_render(view._replace(**params), q, t, cam, False, True, ps_m, dummy)
+    res["generic"] = run(out, (*params.values(), dummy))
+    return res, ps_w, ps_m
+
+
+# The kernel whose output each route's rows come from, for its TOL
+ROUTE_TOL = {"tracking": ("fused_forward", "fused_backward"),
+             "mapping fused": ("fused_forward", "segment_reduce"),
+             "generic": ("composite_forward", "segment_reduce11")}
+
+
+def reordered_tiles(ps, ref) -> "torch.Tensor":
+    """[T] bool: the tiles whose pair list differs between two structures
+    of the same pairs per tile."""
+    import torch
+
+    if not torch.equal(ps.tile_start, ref.tile_start):
+        fail("path 16 (c): a reordered structure holds other pairs per tile")
+    diff = (ps.pair_gauss != ref.pair_gauss).to(torch.int32)
+    lens = (ps.tile_start[1:] - ps.tile_start[:-1]).long()
+    tile = torch.repeat_interleave(torch.arange(lens.numel(), device=diff.device), lens)
+    return torch.zeros(lens.numel(), dtype=torch.int32, device=diff.device).index_add_(
+        0, tile, diff) > 0
+
+
+def tile_pixels(tiles, cam) -> "torch.Tensor":
+    """[H, W] bool: the pixels of the given tiles."""
+    import torch
+
+    from splatam_tpu_torch.render.binning import TILE, grid_shape
+
+    gx, gy = grid_shape(cam.width, cam.height)
+    m = tiles.reshape(gy, gx).repeat_interleave(TILE, 0).repeat_interleave(TILE, 1)
+    return m[:cam.height, :cam.width]
+
+
+def gaussians_in(tiles, ps, n: int) -> "torch.Tensor":
+    """[N] bool: the Gaussians with a pair in one of the given tiles."""
+    import torch
+
+    lens = (ps.tile_start[1:] - ps.tile_start[:-1]).long()
+    hit = torch.repeat_interleave(tiles, lens)
+    out = torch.zeros(n, dtype=torch.bool, device=tiles.device)
+    out[ps.pair_gauss.long()[hit]] = True
+    return out
+
+
+def order_ok(ps, view, q, t, cam, direct_j: int) -> bool:
+    """The structure's pairs run in the order the binning defines, from
+    keys recomputed out of the map's projection: by tile, then quantized
+    depth, then (direct_j = J > 0) the slots j < J before the others, then
+    Gaussian index, each step strictly increasing."""
+    import torch
+
+    from splatam_tpu_torch.render import api, binning
+    from splatam_tpu_torch.slam import steps
+
+    with torch.no_grad():
+        means_cam, rots_cam = steps.transform_to_frame(view, q, t, False, False)
+        proj, aux = api.project_gaussians(cam, means_cam, rots_cam, view.logit_opacities,
+                                          view.log_scales, view.active)
+    gx, gy = binning.grid_shape(cam.width, cam.height)
+    qd = binning.quantized_depth(proj.depth, binning.depth_bits_for(gx * gy), cam.far)
+    lens = (ps.tile_start[1:] - ps.tile_start[:-1]).long()
+    tile = torch.repeat_interleave(torch.arange(lens.numel(), device=lens.device), lens)
+    g = ps.pair_gauss.long()
+    j = ((tile // gx - aux.rect_min[g, 1]) * aux.rect_wh[g, 0] + tile % gx
+         - aux.rect_min[g, 0])
+    key = tile * (qd.max() + 1) + qd[g]
+    if direct_j:
+        key = key * 2 + (j >= direct_j)
+    key = key * view.means3d.shape[0] + g
+    return bool((key[1:] > key[:-1]).all()) and bool(((j >= 0) & (j < aux.rect_wh[
+        g, 0] * aux.rect_wh[g, 1])).all())
+
+
+def compare_variant(name: str, got: dict, ref: dict, moved_px, moved_g) -> None:
+    """Path 16 (c): each route's image rows and gradient columns on a
+    variant's structures against those on the classic ones, by each row's
+    TOL of its largest value, outside the pixels and Gaussians of tiles
+    whose tied pairs the variant reorders (moved_px, moved_g; what it does
+    inside them is printed, and the pose's gradient, a sum over every pair,
+    is then printed only)."""
+    import torch
+
+    for route, (img, grads) in got.items():
+        rimg, rgrads = ref[route]
+        tol_img, tol_grad = (TOL[k] for k in ROUTE_TOL[route])
+        keep = (~moved_px).to(img.dtype)
+        _, rels = rel_err(img * keep, rimg * keep)
+        bits = torch.equal(img, rimg)
+        g_rels, g_bits = [], True
+        for g, r in zip(grads, rgrads):
+            rows = ~moved_g if g.shape[0] == moved_g.shape[0] else None
+            gk, rk = (g, r) if rows is None else (g[rows], r[rows])
+            scale = r.abs().amax(0).clamp_min(1e-30)
+            g_rels.append(float(((gk - rk).abs().amax(0) / scale).max()) if gk.numel() else 0.0)
+            g_bits = g_bits and torch.equal(g, r)
+        inside = float((img - rimg).abs().amax()) if bool(moved_px.any()) else 0.0
+        gated = [e for e, g in zip(g_rels, grads)
+                 if g.shape[0] == moved_g.shape[0] or not bool(moved_px.any())]
+        ok = max(rels) <= tol_img and max(gated, default=0.0) <= tol_grad
+        print(f"[path 16 {name}] {route}: images worst_row_rel={max(rels):.1e} (tol "
+              f"{tol_img:.0e}), equal bit for bit={bits}; gradients worst_column_rel="
+              f"{max(g_rels):.1e} (tol {tol_grad:.0e}), equal bit for bit={g_bits}; "
+              f"{int(moved_px.sum())} pixels in reordered tiles (max|diff| {inside:.2e}), "
+              f"{int(moved_g.sum())} Gaussians with pairs there {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail(f"path 16 (c): {route} on the {name} structures differs from the classic")
+
+
+def drive_variants(final_map, device) -> dict:
+    """Path 16 (c): returns the launch counts of the variants' renders."""
+    import torch
+
+    from splatam_tpu_torch.render.binning import BinOptions
+    from splatam_tpu_torch.scripts.harness import launch_counts, reset_launch_counts
+    from splatam_tpu_torch.slam import steps
+
+    view, q, t, cam = final_map
+    gen = torch.Generator(device).manual_seed(16)
+    cot = torch.randn((6, cam.height, cam.width), device=device, generator=gen)
+    reset_launch_counts()
+    outs, structs = {}, {}
+    for name, opts in VARIANTS.items():
+        outs[name], *structs[name] = variant_renders(view, q, t, cam, BinOptions(**opts), cot)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check_launches("path 16 variants", launches)
+    n_classic = structs["classic"][1].n_pairs
+    for name, opts in VARIANTS.items():
+        ps_w, ps_m = structs[name]
+        ms = event_ms(lambda o=BinOptions(**opts): steps.loss_pair_structure(
+            view, q, t, cam, bin_opts=o), 5, 1)
+        print(f"path 16 {name}: {ps_m.n_pairs} pairs, {ps_m.n_culled} culled "
+              f"({100.0 * ps_m.n_culled / n_classic:.2f}% of {n_classic}); structure build "
+              f"{ms:.3f} ms", flush=True)
+    for name, opts in VARIANTS.items():
+        ok = all(order_ok(ps, view, q, t, cam, opts.get("direct_j", 0))
+                 for ps in structs[name])
+        print(f"path 16 {name}: pairs in the binning's order, from keys recomputed out of the "
+              f"projection: {ok}", flush=True)
+        if not ok:
+            fail(f"path 16 (c): the {name} structures are out of their order")
+    for name in list(VARIANTS)[1:]:
+        ps_w, ps_m = structs[name]
+        moved = torch.zeros(ps_m.tile_start.numel() - 1, dtype=torch.bool, device=device)
+        if name in ORDER_OF:
+            ref_w, ref_m = structs[ORDER_OF[name]]
+            moved = reordered_tiles(ps_m, ref_m)
+            if not torch.equal(moved, reordered_tiles(ps_w, ref_w)):
+                fail(f"path 16 (c): the {name} structures reorder different tiles")
+            print(f"path 16 {name}: {int(moved.sum())} of {moved.numel()} tiles hold tied "
+                  f"pairs it orders unlike {ORDER_OF[name]}", flush=True)
+        compare_variant(name, outs[name], outs["classic"], tile_pixels(moved, cam),
+                        gaussians_in(moved, ps_m, view.means3d.shape[0]))
+    del outs, structs
+    for name in ("tile_cull", "both"):
+        x = kernel_inputs(view, q, t, cam, seed=16, bin_opts=BinOptions(**VARIANTS[name]))
+        label = (f"path 16, the {name} structures, {x.ps.n_pairs} pairs (fused), "
+                 f"{x.b.n_pairs} (generic)")
+        cases = kernel_cases(x)
+        check_cases(cases, label)
+        check_repeat(cases, label)
+        del x, cases
+        torch.cuda.empty_cache()
+    return launches
+
+
+def drive_bench(final_map, device) -> dict:
+    """Path 16: returns the launch counts of (a)-(d)."""
+    import torch
+
+    from splatam_tpu_torch.scripts import entry
+    from splatam_tpu_torch.scripts.harness import launch_counts, reset_launch_counts
+
+    t0 = time.time()
+    launches = {}
+    base, launches["path 16 bench"], _ = run_bench("path 16 bench")
+    cull, launches["path 16 bench cull"], frames = run_bench("path 16 bench cull",
+                                                             BENCH_TILE_CULL="1")
+    shares = [ln.split("(")[-1].rstrip(")") for ln in frames]
+    print(f"path 16 (b): {cull['value']} s/frame under the cull against {base['value']} "
+          f"(frame0 {cull['frame0_s']} / {base['frame0_s']}, max {cull['max_frame_s']} / "
+          f"{base['max_frame_s']}); culled per frame {', '.join(shares)}; "
+          f"{cull['n_gaussians_final']} Gaussians against {base['n_gaussians_final']}",
+          flush=True)
+    if abs(cull["n_gaussians_final"] - base["n_gaussians_final"]) > 0.01 * base[
+            "n_gaussians_final"]:
+        fail("path 16 (b): the culled bench's final map is more than 1% off the classic one's")
+    t1 = time.time()
+    launches["path 16 variants"] = drive_variants(final_map, device)
+    print(f"path 16 (c): {time.time() - t1:.1f} s", flush=True)
+
+    reset_launch_counts()
+    fn, args = entry.entry("cuda")
+    with torch.no_grad():
+        outs = fn(*args)
+    torch.cuda.synchronize()
+    launches["path 16 entry"] = launch_counts()
+    check_launches("path 16 entry", launches["path 16 entry"])
+    shapes = [tuple(o.shape) for o in outs]
+    finite = all(bool(torch.isfinite(o).all()) for o in outs)
+    print(f"path 16 (d): entry() on the card: {shapes}, finite={finite}, K1 launches "
+          f"{launches['path 16 entry']['composite_forward']}", flush=True)
+    if shapes != [(3, 128, 160), (128, 160), (128, 160)] or not finite:
+        fail("path 16 (d): entry() gave the wrong shapes or non-finite values")
+    print(f"path 16: {time.time() - t0:.1f} s", flush=True)
+    return launches
+
+
 def final_frame_of(rt, idx: int, device):
     """Frame idx of the runtime's dataset on the device (colour, depth)."""
     from splatam_tpu_torch.data import frame_to_tensors
@@ -2719,6 +3042,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"path 14: {time.time() - t0:.1f} s", flush=True)
     launches.update(drive_bands(work, device, final_map, final_frame))
+    launches.update(drive_bench(final_map, device))
     del final_map, final_frame
     torch.cuda.empty_cache()
 

@@ -28,7 +28,8 @@ from splatam_tpu_torch.core.transforms import build_rotation, matrix_to_quaterni
 from splatam_tpu_torch.data import frame_to_tensors
 from splatam_tpu_torch.eval.ate import evaluate_ate
 from splatam_tpu_torch.eval.lpips import lpips_fn
-from splatam_tpu_torch.render.api import RenderOutput, render_rgbd_sil
+from splatam_tpu_torch.render.api import CLASSIC, RenderOutput, render_rgbd_sil
+from splatam_tpu_torch.render.binning import BinOptions
 from splatam_tpu_torch.slam.steps import transform_to_frame
 
 
@@ -71,14 +72,16 @@ def _map_from_params(params: dict, device) -> GaussianMap:
 
 
 @torch.no_grad()
-def render_at_pose(gm: GaussianMap, q, t, cam: Camera, backend: str = "auto") -> RenderOutput:
+def render_at_pose(gm: GaussianMap, q, t, cam: Camera, backend: str = "auto",
+                   bin_opts: BinOptions = CLASSIC) -> RenderOutput:
     """Render the map at pose (q, t) (wxyz quaternion, translation) with
-    the generic render's `backend` (render.api.render_gaussians)."""
+    the generic render's `backend` and binning variants `bin_opts`
+    (render.api.render_gaussians)."""
     q = torch.as_tensor(q, dtype=torch.float32, device=gm.device)
     t = torch.as_tensor(t, dtype=torch.float32, device=gm.device)
     means_cam, rots_cam = transform_to_frame(gm, q, t, False, False)
     return render_rgbd_sil(cam, means_cam, gm.rgb_colors, rots_cam, gm.logit_opacities,
-                           gm.log_scales, gm.active, backend=backend)
+                           gm.log_scales, gm.active, backend=backend, bin_opts=bin_opts)
 
 
 def est_w2c_list_from_params(params: dict, num_frames: int, gt_w2c_list):
@@ -325,12 +328,13 @@ def eval_nvs(dataset, final_params: dict, num_frames: int, eval_dir: str, sil_th
 def eval_sequence(dataset, final_params: dict, num_frames: int, eval_dir: str,
                   sil_thres: float, mapping_iters: int, add_new_gaussians: bool,
                   eval_every: int = 1, device="cuda", save_plots: bool = True,
-                  lpips_weights: str | None = None) -> dict:
+                  lpips_weights: str | None = None, bin_opts: BinOptions = CLASSIC) -> dict:
     """The reference's eval(): renders each evaluated frame at its
-    estimated pose; returns the summary metric dict. Only a failed
-    trajectory alignment (evaluate_ate's SVD, or evaluated frames that do
-    not cover the trajectory) is caught, and gives the reference's ATE of
-    100.0; a failed render ends the evaluation."""
+    estimated pose (binning with `bin_opts`, as the JAX runtime's final
+    eval takes its phases' render config); returns the summary metric
+    dict. Only a failed trajectory alignment (evaluate_ate's SVD, or
+    evaluated frames that do not cover the trajectory) is caught, and gives
+    the reference's ATE of 100.0; a failed render ends the evaluation."""
     print("Evaluating Final Parameters ...")
     os.makedirs(eval_dir, exist_ok=True)
     plot_dir = os.path.join(eval_dir, "plots")
@@ -353,7 +357,7 @@ def eval_sequence(dataset, final_params: dict, num_frames: int, eval_dir: str,
             continue
         color, depth = frame_to_tensors(color_np, depth_np, device)
         out = render_at_pose(gm, cam_rots[..., time_idx].reshape(4),
-                             cam_trans[..., time_idx].reshape(3), cam)
+                             cam_trans[..., time_idx].reshape(3), cam, bin_opts=bin_opts)
         psnr, ssim, lp, rmse, depth_l1, sil_mask, adiff = _view_metrics(
             out, color, depth, sil_thres, tracking_only, lpips, sil_in_depth=tracking_only)
         psnr_list.append(psnr)

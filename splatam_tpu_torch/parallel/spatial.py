@@ -128,14 +128,14 @@ def _gathered(outs: list, bands: list, radii=None) -> api.RenderOutput:
 
 def compute_pair_structure_sharded(bands: list, cam: Camera, means_cam, rots_cam,
                                    logit_opacities, log_scales, active, world_rows=None,
-                                   world_rows8=None) -> list:
+                                   world_rows8=None, bin_opts=api.CLASSIC) -> list:
     """render.api.compute_pair_structure per band: each band expands, sorts
     and lays out only the (Gaussian, tile) pairs of its own rows (its
     shifted camera culls the rest at the tile rectangles), so binning work
     splits over the bands; a Gaussian across a band boundary has pairs in
-    both bands. world_rows / world_rows8 as compute_pair_structure takes
-    them (each band gathers its own pairs' rows). Returns the list of the
-    bands' PairStructures."""
+    both bands. world_rows / world_rows8 and bin_opts as
+    compute_pair_structure takes them (each band gathers its own pairs'
+    rows). Returns the list of the bands' PairStructures."""
     n = means_cam.shape[0]
     structs = [_empty_structure(n, dev, world_rows, world_rows8) for dev in bands]
     for k, dev, row0, cam_k in _band_setup(bands, cam):
@@ -143,7 +143,8 @@ def compute_pair_structure_sharded(bands: list, cam: Camera, means_cam, rots_cam
             cam_k, means_cam.to(dev), rots_cam.to(dev), logit_opacities.to(dev),
             log_scales.to(dev), active.to(dev), **_band_geometry(cam, row0),
             world_rows=None if world_rows is None else world_rows.to(dev),
-            world_rows8=None if world_rows8 is None else world_rows8.to(dev))
+            world_rows8=None if world_rows8 is None else world_rows8.to(dev),
+            bin_opts=bin_opts)
     return structs
 
 
@@ -175,7 +176,7 @@ def render_rgbd_sil_mapping_fused_sharded(bands: list, cam: Camera, structs, mea
 
 def render_rgbd_sil_sharded(bands: list, cam: Camera, means_cam, colors, rots_cam,
                             logit_opacities, log_scales, active, means2d_dummy=None,
-                            pair_structure=None) -> api.RenderOutput:
+                            pair_structure=None, bin_opts=api.CLASSIC) -> api.RenderOutput:
     """Banded drop-in for render.api.render_rgbd_sil (the generic render,
     K1 -> K2 -> K3 per band): the image is the full render's up to the
     rounding of each band's NDC terms (pixel math never crosses a band
@@ -186,7 +187,8 @@ def render_rgbd_sil_sharded(bands: list, cam: Camera, means_cam, colors, rots_ca
     means2d_dummy's y column is scaled by h_full / h_band before the
     render adds it at the band's [W/2, h_band/2], so its gradient keeps
     the reference's full-image NDC scale (the 3DGS statistics).
-    pair_structure reuses compute_pair_structure_sharded's list."""
+    pair_structure reuses compute_pair_structure_sharded's list; bin_opts
+    as render_rgbd_sil takes it."""
     if pair_structure is not None:
         check_structs(bands, pair_structure)
     outs = []
@@ -199,6 +201,6 @@ def render_rgbd_sil_sharded(bands: list, cam: Camera, means_cam, colors, rots_ca
             cam_k, means_cam.to(dev), colors.to(dev), rots_cam.to(dev),
             logit_opacities.to(dev), log_scales.to(dev), active.to(dev),
             pair_structure=None if pair_structure is None else pair_structure[k],
-            means2d_dummy=dummy, **_band_geometry(cam, row0)))
+            means2d_dummy=dummy, bin_opts=bin_opts, **_band_geometry(cam, row0)))
     radii = torch.stack([o.radii.to(bands[0]) for o in outs]).amax(0)
     return _gathered(outs, bands, radii)

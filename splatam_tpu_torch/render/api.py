@@ -9,7 +9,10 @@ projection by autograd, K1 -> K2 -> K3), the pair-space tracking render
 (per-pair rows, gradients to the pose) and the fused isotropic mapping
 render. The reference's RenderConfig has no counterpart: its pair-buffer
 sizes have none (the port sizes buffers exactly, so nothing overflows),
-and its backend is the `backend` argument of the generic render.
+its backend is the `backend` argument of the generic render, and its
+binning variants (tile_cull, direct_j) the `bin_opts` argument
+(binning.BinOptions) of every render that bins and of
+compute_pair_structure.
 """
 from __future__ import annotations
 
@@ -22,6 +25,9 @@ from splatam_tpu_torch.core.transforms import normalize
 from splatam_tpu_torch.render import binning as binning_mod
 from splatam_tpu_torch.render import composite, composite_tiles, fused_iso, naive, pairspace
 from splatam_tpu_torch.render import projection as projection_mod
+from splatam_tpu_torch.render.binning import BinOptions
+
+CLASSIC = BinOptions()
 
 # The generic render's backends: the kernels (K1 -> K2 -> K3 on the card,
 # their plain versions on the CPU; "pallas" is the JAX package's name for
@@ -55,6 +61,7 @@ class PairStructure(NamedTuple):
     n_pairs: int
     world8: torch.Tensor | None = None  # [P, 8] tracking an isotropic map
     world16: torch.Tensor | None = None  # [P, 13] tracking an anisotropic map
+    n_culled: int = 0  # pairs the tile cull dropped (binning.Bins)
 
 
 def _prep_gaussians(unnorm_rotations, logit_opacities, log_scales):
@@ -82,10 +89,12 @@ def project_gaussians(cam: Camera, means3d, unnorm_rotations, logit_opacities, l
 @torch.no_grad()
 def compute_pair_structure(cam: Camera, means3d, unnorm_rotations, logit_opacities,
                            log_scales, active, intrinsics_override=None, lim_wh=None,
-                           world_rows=None, world_rows8=None) -> PairStructure:
+                           world_rows=None, world_rows8=None,
+                           bin_opts: BinOptions = CLASSIC) -> PairStructure:
     """Binning structure for a render at this geometry (inputs are
     constants); intrinsics_override and lim_wh as project_gaussians takes
-    them (one band's structure, parallel/spatial.py).
+    them (one band's structure, parallel/spatial.py), bin_opts the binning
+    variants.
 
     world_rows [N, 13] (pairspace.pack_world_rows) also gathers the
     structure's world16 per sorted pair for the pair-space tracking render
@@ -96,7 +105,7 @@ def compute_pair_structure(cam: Camera, means3d, unnorm_rotations, logit_opaciti
                          "world-16 rows (anisotropic map) or world-8 rows (isotropic map)")
     proj, aux = project_gaussians(cam, means3d, unnorm_rotations, logit_opacities,
                                   log_scales, active, intrinsics_override, lim_wh)
-    ps = _bins(proj, aux, cam, lim_wh)
+    ps = _bins(proj, aux, cam, lim_wh, bin_opts)
     idx = ps.pair_gauss.long()
     if world_rows8 is not None:
         ps = ps._replace(world8=world_rows8[idx].contiguous())
@@ -120,17 +129,21 @@ def _no_radii(ps: PairStructure) -> torch.Tensor:
     return torch.zeros(ps.counts.shape, dtype=torch.int32, device=ps.counts.device)
 
 
-def _bins(proj, aux, cam: Camera, lim_wh=None) -> PairStructure:
+def _bins(proj, aux, cam: Camera, lim_wh=None, bin_opts: BinOptions = CLASSIC
+          ) -> PairStructure:
     """The binning of a projection through cam; lim_wh (a band's full
     image) also sets the depth key's bits (binning.build_bins full_wh)."""
     with torch.no_grad():
         b = binning_mod.build_bins(proj, aux, cam.width, cam.height, far=cam.far,
-                                   full_wh=lim_wh)
-    return PairStructure(b.pair_gauss, b.tile_start, b.offsets, b.counts, b.dst, b.n_pairs)
+                                   full_wh=lim_wh, tile_cull=bin_opts.tile_cull,
+                                   direct_j=bin_opts.direct_j)
+    return PairStructure(b.pair_gauss, b.tile_start, b.offsets, b.counts, b.dst, b.n_pairs,
+                         n_culled=b.n_culled)
 
 
 def _render(cam: Camera, means3d, colors, unnorm_rotations, logit_opacities, log_scales, active,
-            backend, means2d_dummy, append_depth, intrinsics_override, lim_wh, pair_structure):
+            backend, means2d_dummy, append_depth, intrinsics_override, lim_wh, pair_structure,
+            bin_opts):
     """The backend's own rows, radii and pair count. The kernels' rows are
     [colors..., (z, z^2,) sil] (the silhouette from the transmittance), the
     references' [colors..., (z, 1, z^2)] (the silhouette a composited
@@ -155,7 +168,7 @@ def _render(cam: Camera, means3d, colors, unnorm_rotations, logit_opacities, log
         chans = torch.cat([colors, *extra], dim=1)
     if kernels:
         composite.check_channels(chans.shape[1])
-        ps = pair_structure if pair_structure is not None else _bins(proj, aux, cam, lim_wh)
+        ps = pair_structure or _bins(proj, aux, cam, lim_wh, bin_opts)
         img = composite.CompositeGauss.apply(xy, proj.conic, opacity, chans, ps,
                                              cam.width, cam.height)
         return img, aux.radius, ps.n_pairs
@@ -163,7 +176,7 @@ def _render(cam: Camera, means3d, colors, unnorm_rotations, logit_opacities, log
         img = naive.composite_naive(proj._replace(xy=xy, opacity=opacity), aux, chans,
                                     cam.width, cam.height)
         return img, aux.radius, 0
-    ps = pair_structure if pair_structure is not None else _bins(proj, aux, cam, lim_wh)
+    ps = pair_structure or _bins(proj, aux, cam, lim_wh, bin_opts)
     lists, lens = composite_tiles.tile_lists(ps.pair_gauss, ps.tile_start)
     px, py = (torch.from_numpy(a).to(xy.device)
               for a in composite_tiles.tile_pixel_coords(cam.width, cam.height))
@@ -174,7 +187,8 @@ def _render(cam: Camera, means3d, colors, unnorm_rotations, logit_opacities, log
 def render_gaussians(cam: Camera, means3d, colors, unnorm_rotations, logit_opacities,
                      log_scales, active, backend: str = "auto", means2d_dummy=None,
                      append_depth_channels: bool = True, intrinsics_override=None,
-                     lim_wh=None, pair_structure: PairStructure | None = None):
+                     lim_wh=None, pair_structure: PairStructure | None = None,
+                     bin_opts: BinOptions = CLASSIC):
     """Differentiable render of any per-Gaussian channels colors [N, C].
 
     Returns (img, radii [N] int32, n_pairs). img is [C + 3, H, W], the rows
@@ -196,11 +210,12 @@ def render_gaussians(cam: Camera, means3d, colors, unnorm_rotations, logit_opaci
     key (binning.build_bins full_wh): a render of one band of a larger
     image.
     pair_structure reuses an earlier binning as render_rgbd_sil does;
-    means2d_dummy harvests the screen-space gradient as there."""
+    means2d_dummy harvests the screen-space gradient as there. bin_opts
+    selects the binning variants of a render that bins."""
     img, radii, n_pairs = _render(cam, means3d, colors, unnorm_rotations, logit_opacities,
                                   log_scales, active, backend, means2d_dummy,
                                   append_depth_channels, intrinsics_override, lim_wh,
-                                  pair_structure)
+                                  pair_structure, bin_opts)
     nu = colors.shape[1]
     if backend in KERNEL_BACKENDS:
         # kernel rows [colors..., z, z^2, sil] -> [colors..., z, sil, z^2];
@@ -213,7 +228,7 @@ def render_gaussians(cam: Camera, means3d, colors, unnorm_rotations, logit_opaci
 def render_rgbd_sil(cam: Camera, means3d, rgb_colors, unnorm_rotations, logit_opacities,
                     log_scales, active, pair_structure: PairStructure | None = None,
                     means2d_dummy=None, backend: str = "auto", intrinsics_override=None,
-                    lim_wh=None) -> RenderOutput:
+                    lim_wh=None, bin_opts: BinOptions = CLASSIC) -> RenderOutput:
     """Generic differentiable render of r, g, b, z, z^2 and the
     silhouette: project (plain PyTorch, so autograd carries the gradients
     to every input), bin under no_grad, composite with K1 forward and K2 ->
@@ -230,11 +245,11 @@ def render_rgbd_sil(cam: Camera, means3d, rgb_colors, unnorm_rotations, logit_op
     of K2's xy gradients in the reference's NDC half-extents: the 3DGS
     densification statistic (splatam_tpu/render/api.py:313-319;
     utils/slam_external.py:100-104). radii come from this call's
-    projection. intrinsics_override and lim_wh as render_gaussians takes
-    them."""
+    projection. intrinsics_override, lim_wh and bin_opts as render_gaussians
+    takes them."""
     img, radii, n_pairs = _render(cam, means3d, rgb_colors, unnorm_rotations, logit_opacities,
                                   log_scales, active, backend, means2d_dummy, True,
-                                  intrinsics_override, lim_wh, pair_structure)
+                                  intrinsics_override, lim_wh, pair_structure, bin_opts)
     if backend in KERNEL_BACKENDS:
         return _public(img, radii, n_pairs)
     return RenderOutput(im=img[:3], depth=img[3], silhouette=img[4], depth_sq=img[5],

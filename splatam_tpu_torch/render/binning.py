@@ -14,6 +14,11 @@ What differs from the reference, because this runs on a GPU:
     overflows and nothing is retried;
   * the per-tile layout is the sorted stream itself (tile t owns pairs
     tile_start[t] .. tile_start[t+1]); no padding to 128-lane chunks.
+
+Both of the reference's binning variants (tpu.tile_cull, tpu.direct_j) are
+here, with exact buffers (build_bins). With the cull, the culled slots
+leave the expansion before the sort: offsets, counts and dst then describe
+the kept slots, and n_pairs counts them.
 """
 from __future__ import annotations
 
@@ -31,7 +36,24 @@ class Bins(NamedTuple):
     offsets: torch.Tensor  # [N] int32 first expansion slot of each gaussian
     counts: torch.Tensor  # [N] int32 pairs per gaussian (0 = invisible)
     dst: torch.Tensor  # [P] int32 sorted position of each expansion slot
-    n_pairs: int
+    n_pairs: int  # pairs in the stream (kept pairs under the cull)
+    n_culled: int = 0  # pairs the tile cull dropped
+
+
+class BinOptions(NamedTuple):
+    """The binning variants a config selects (the reference's
+    RenderConfig.tile_cull and .direct_j; config keys tpu.tile_cull and
+    tpu.direct_j)."""
+
+    tile_cull: bool = False
+    direct_j: int = 0
+
+    @classmethod
+    def from_config(cls, tpu: dict, banded: bool = False) -> "BinOptions":
+        """The config's tpu section; direct_j is 0 with bands, as in the
+        reference runtime (splatam_tpu/slam/pipeline.py:600)."""
+        return cls(tile_cull=bool(tpu.get("tile_cull", False)),
+                   direct_j=0 if banded else int(tpu.get("direct_j", 0)))
 
 
 def grid_shape(width: int, height: int) -> tuple[int, int]:
@@ -58,15 +80,69 @@ def quantized_depth(depth: torch.Tensor, bits: int, far: float = 100.0) -> torch
     return torch.clamp((torch.log(z / NEAR_CLIP) / log_span * qmax).to(torch.int64), 0, qmax)
 
 
+def _box_min_quad(xlo, xhi, ylo, yhi, a, b, c):
+    """min over the box [xlo, xhi] x [ylo, yhi] of q(d) = a dx^2 + 2b dx dy +
+    c dy^2 (splatam_tpu/render/binning.py:75-98): 0 when the box holds the
+    origin, else the least of the four edges' clamped 1D minima."""
+    c_s = torch.clamp(c, min=1e-12)
+    a_s = torch.clamp(a, min=1e-12)
+
+    def edge_x(x0):
+        ys = torch.minimum(torch.maximum(-b * x0 / c_s, ylo), yhi)
+        return a * x0 * x0 + 2.0 * b * x0 * ys + c * ys * ys
+
+    def edge_y(y0):
+        xs = torch.minimum(torch.maximum(-b * y0 / a_s, xlo), xhi)
+        return a * xs * xs + 2.0 * b * xs * y0 + c * y0 * y0
+
+    m = torch.minimum(torch.minimum(edge_x(xlo), edge_x(xhi)),
+                      torch.minimum(edge_y(ylo), edge_y(yhi)))
+    inside = (xlo <= 0.0) & (xhi >= 0.0) & (ylo <= 0.0) & (yhi >= 0.0)
+    return torch.where(inside, torch.zeros_like(m), m)
+
+
+def cull_cut(opacity: torch.Tensor) -> torch.Tensor:
+    """The Mahalanobis-squared cutoff (splatam_tpu/render/binning.py:101-105):
+    alpha = op exp(-q / 2) < 1/255 iff q > 2 ln(255 op)."""
+    return torch.clamp(2.0 * torch.log(255.0 * torch.clamp(opacity, min=1e-12)), min=0.0)
+
+
+def tile_culled(tx, ty, px, py, a, b, c, cut):
+    """True for the (gaussian, tile) pairs whose least alpha over the tile's
+    16x16 pixel box is below 1/255 (splatam_tpu/render/binning.py:108-116):
+    every pixel of such a pair is skipped in-kernel. The 1e-4 slack keeps
+    borderline pairs."""
+    xlo = tx.to(torch.float32) * TILE - px
+    ylo = ty.to(torch.float32) * TILE - py
+    m = _box_min_quad(xlo, xlo + (TILE - 1.0), ylo, ylo + (TILE - 1.0), a, b, c)
+    return m > cut + 1e-4
+
+
 def build_bins(proj: Projected, aux: ProjectedAux, width: int, height: int,
-               far: float = 100.0, full_wh: tuple | None = None) -> Bins:
+               far: float = 100.0, full_wh: tuple | None = None, tile_cull: bool = False,
+               direct_j: int = 0) -> Bins:
     """Expand (gaussian, tile) pairs and sort them by (tile, depth) key.
 
     full_wh: the (width, height) of the image this one is a band of. Its
     tile count, not the band's, sets the depth key's bits, so a band's
     pairs composite in the full image's order: with the band's own (fewer)
     tiles the key would keep one more depth bit and could part pairs that
-    the full image's key ties (and then orders by Gaussian index)."""
+    the full image's key ties (and then orders by Gaussian index).
+
+    tile_cull drops the pairs tile_culled names, except each Gaussian's
+    first (j == 0), so counts > 0 exactly where it is without the cull.
+    The kept slots, in expansion order, are the stream: offsets, counts
+    and dst describe them (the reference keeps counts as the rect area and
+    sentinel keys for the culled slots; nothing here reads the area). The
+    kept count takes a second host sync.
+
+    direct_j = J > 0 is the reference's J-slot expansion
+    (splatam_tpu/render/binning.py:242-373) with exact buffers, where all
+    that is left of it is its pair order: among pairs of equal (tile,
+    quantized depth) key, every Gaussian's slots j < J come first, in
+    Gaussian order, then the slots j >= J. Its fallback to the classic
+    path when pair_cap < J * N + 4096, its tail-only overflow and its
+    in_stream change have no counterpart: there is no pair cap."""
     device = proj.depth.device
     grid_x, grid_y = grid_shape(width, height)
     num_tiles = grid_x * grid_y
@@ -77,7 +153,7 @@ def build_bins(proj: Projected, aux: ProjectedAux, width: int, height: int,
     rect_w = aux.rect_wh[:, 0]
     counts = torch.where(aux.visible, rect_w * aux.rect_wh[:, 1], torch.zeros_like(rect_w))
     offsets = torch.cumsum(counts, 0) - counts
-    total = int(counts.sum())  # the one host sync of a structure build
+    total = int(counts.sum())  # the one host sync of a structure build without the cull
 
     qdepth = quantized_depth(proj.depth, bits, far)
 
@@ -85,15 +161,35 @@ def build_bins(proj: Projected, aux: ProjectedAux, width: int, height: int,
     j = torch.arange(total, device=device) - offsets[g]
     w = torch.clamp(rect_w[g], min=1)
     tdy = torch.div(j, w, rounding_mode="floor")
-    tdx = j - tdy * w
-    tile = (aux.rect_min[g, 1] + tdy) * grid_x + aux.rect_min[g, 0] + tdx
-    key = (tile << bits) | qdepth[g]
+    tx = aux.rect_min[g, 0] + j - tdy * w
+    ty = aux.rect_min[g, 1] + tdy
+    n_culled = 0
+    if tile_cull:
+        rows = torch.cat([proj.xy, proj.conic, cull_cut(proj.opacity)[:, None]], 1)[g]
+        culled = tile_culled(tx, ty, *rows.unbind(1))
+        keep = torch.nonzero((j == 0) | ~culled)[:, 0]  # the kept count: a host sync
+        g, j, tx, ty = g[keep], j[keep], tx[keep], ty[keep]
+        n_culled = total - g.shape[0]
+        total = g.shape[0]
+        counts = torch.bincount(g, minlength=n)
+        offsets = torch.cumsum(counts, 0) - counts
+    key = ((ty * grid_x + tx) << bits) | qdepth[g]
+    key_bits = bits
+    if direct_j > 0:
+        # one more key bit below the depth: a tail slot sorts after every
+        # direct slot of its key, and the stable sort keeps Gaussian order
+        key = (key << 1) | (j >= direct_j).to(key.dtype)
+        key_bits += 1
     sorted_key, order = torch.sort(key, stable=True)
 
-    targets = torch.arange(num_tiles + 1, device=device, dtype=torch.int64) << bits
+    targets = torch.arange(num_tiles + 1, device=device, dtype=torch.int64) << key_bits
     tile_start = torch.searchsorted(sorted_key, targets, side="left")
     dst = torch.empty(total, dtype=torch.int32, device=device)
     dst[order] = torch.arange(total, dtype=torch.int32, device=device)
+    totals = build_bins.totals
+    totals["builds"] += 1
+    totals["pairs"] += total
+    totals["culled"] += n_culled
     return Bins(
         pair_gauss=g[order].to(torch.int32),
         tile_start=tile_start.to(torch.int32),
@@ -101,4 +197,14 @@ def build_bins(proj: Projected, aux: ProjectedAux, width: int, height: int,
         counts=counts.to(torch.int32),
         dst=dst,
         n_pairs=total,
+        n_culled=n_culled,
     )
+
+
+def reset_pair_totals() -> None:
+    """Zero build_bins.totals: the structure builds since, the pairs they
+    put in their streams, and the pairs their tile cull dropped."""
+    build_bins.totals = dict(builds=0, pairs=0, culled=0)
+
+
+reset_pair_totals()

@@ -2,7 +2,8 @@
 (counterpart of scripts/diag_shadow_tracking.py).
 
     python -m splatam_tpu_torch.scripts.diag_shadow_tracking [--frames 60] [--h 120]
-        [--w 160] [--iters 60] [--lr_decay 0.05] [--c2f 4:10,2:10] [--device cpu]
+        [--w 160] [--iters 60] [--lr_decay 0.05] [--c2f 4:10,2:10] [--direct_j J]
+        [--device cpu]
 
 Runs SLAM with ground-truth poses feeding densification and mapping, and
 ALSO runs the tracker each frame from the constant-velocity init taken
@@ -12,10 +13,9 @@ into the estimator's bias and noise (the per-frame shadow error measured
 here) and feedback accumulation (everything else: full-SLAM drift minus
 this). Prints each frame's error and the summary (mean, median, p90, max
 in cm and degrees). Runs on the card unless --device cpu is given; exits 2
-when asked for the card and there is none. The JAX script's --direct_j
-selects a binning variant the port left out on purpose (ROADMAP,
-section 1): it exits 2 saying so. --workdir defaults to
-./experiments/shadow (the JAX script's is under /tmp).
+when asked for the card and there is none. --direct_j sets tpu.direct_j,
+as the JAX script's does. --workdir defaults to ./experiments/shadow (the
+JAX script's is under /tmp).
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ from splatam_tpu_torch.scripts.gauntlet import ROOT, parse_levels
 def shadow_config(frames: int = 60, h: int = 120, w: int = 160, iters: int = 60,
                   lr_decay: float = 0.05, workdir: str = "./experiments/shadow",
                   c2f: list | None = None, c2f_stride: bool = False,
-                  c2f_extra: bool = False) -> dict:
+                  c2f_extra: bool = False, direct_j: int = 0) -> dict:
     """configs/synthetic/splatam.py with the JAX script's changes
     (scripts/diag_shadow_tracking.py:52-78)."""
     from splatam_tpu_torch.slam.config import load_experiment_config
@@ -47,6 +47,8 @@ def shadow_config(frames: int = 60, h: int = 120, w: int = 160, iters: int = 60,
     config["mapping_window_size"] = 24
     config["keyframe_every"] = 5
     config.setdefault("tpu", {})["rebin_every"] = 8
+    if direct_j:
+        config["tpu"]["direct_j"] = direct_j
     if c2f:
         config["tracking"]["coarse_to_fine"] = {
             "enabled": True, "levels": c2f, "downsample": "stride" if c2f_stride else "pool"}
@@ -131,15 +133,13 @@ def main(argv=None) -> tuple[np.ndarray, np.ndarray]:
                     help="strided c2f downsample instead of average pooling")
     ap.add_argument("--c2f_extra", action="store_true",
                     help="run coarse iters on top of --iters instead of within")
-    ap.add_argument("--direct_j", type=int, default=0, help="not ported (exits 2)")
+    ap.add_argument("--direct_j", type=int, default=0,
+                    help="tpu.direct_j: the J-slot pair order (render/binning.py)")
     args = ap.parse_args(argv)
-    if args.direct_j:
-        ap.error("--direct_j selects a binning variant the port left out on purpose "
-                 "(ROADMAP, section 1)")
     device = harness.resolve_device(args.device, "diag_shadow_tracking")
     config = shadow_config(args.frames, args.h, args.w, args.iters, args.lr_decay,
                            args.workdir, parse_levels(args.c2f) if args.c2f else None,
-                           args.c2f_stride, args.c2f_extra)
+                           args.c2f_stride, args.c2f_extra, args.direct_j)
     t, r = shadow_errors(config, device)
     print(summary(t, r))
     return t, r

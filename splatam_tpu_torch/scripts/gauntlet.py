@@ -4,7 +4,8 @@ floors (counterpart of scripts/gauntlet.py).
     python -m splatam_tpu_torch.scripts.gauntlet [--frames 120] [--h 240] [--w 320]
         [--variant clean|noise|loop|scan|replica|both|all] [--rebin 8]
         [--track_iters 60] [--map_iters 60] [--bootstrap frames:iters]
-        [--cur_prob p] [--c2f 4:10,2:10] [--workdir DIR] [--device cpu]
+        [--cur_prob p] [--c2f 4:10,2:10] [--direct_j J] [--tile_cull] [--workdir DIR]
+        [--device cpu]
 
 The reference validates itself by its end-of-run metrics on Replica, TUM
 and ScanNet, which the repo does not ship; this is the falsifiable
@@ -23,8 +24,8 @@ Departures from the JAX script:
   environment variables are the flags --map_iters, --bootstrap
   frames:iters and --cur_prob here; they set the same config keys, and
   the port reads no environment variable;
-- --direct_j and --tile_cull select binning variants the port left out on
-  purpose (ROADMAP, section 1): they exit 2 saying so;
+- --direct_j and --tile_cull set tpu.direct_j and tpu.tile_cull, as the
+  JAX script's do (scripts/gauntlet.py:188-191);
 - --cpu is --device cpu;
 - --workdir defaults to ./experiments/gauntlet (the JAX script's is under
   /tmp).
@@ -185,15 +186,18 @@ def main(argv=None) -> dict:
                     help="strided c2f downsample instead of average pooling")
     ap.add_argument("--c2f_extra", action="store_true",
                     help="run coarse iters on top of track_iters instead of within")
-    ap.add_argument("--direct_j", type=int, default=0, help="not ported (exits 2)")
-    ap.add_argument("--tile_cull", action="store_true", help="not ported (exits 2)")
+    ap.add_argument("--direct_j", type=int, default=0,
+                    help="tpu.direct_j: the J-slot pair order (render/binning.py)")
+    ap.add_argument("--tile_cull", action="store_true",
+                    help="exact alpha-cutoff (gaussian, tile) pair culling")
     args = ap.parse_args(argv)
-    if args.direct_j or args.tile_cull:
-        ap.error("--direct_j and --tile_cull select binning variants the port left out on "
-                 "purpose (ROADMAP, section 1)")
     device = harness.resolve_device(args.device, "gauntlet")
 
     overrides: dict = {}
+    if args.direct_j:
+        overrides.setdefault("tpu", {})["direct_j"] = args.direct_j
+    if args.tile_cull:
+        overrides.setdefault("tpu", {})["tile_cull"] = True
     if args.c2f:
         overrides["tracking"] = {
             "coarse_to_fine": {"enabled": True, "levels": parse_levels(args.c2f),

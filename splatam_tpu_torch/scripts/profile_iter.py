@@ -22,11 +22,13 @@ and the launches of the hand-written kernels per call, so the route that
 get_loss took is visible. On the CPU only the wall time is measured.
 
     python -m splatam_tpu_torch.scripts.profile_iter [--n 262144] [--h 340] [--w 600] [--stages]
+        [--direct_j J] [--tile_cull]
     python -m splatam_tpu_torch.scripts.profile_iter --device cpu --n 20000 --h 48 --w 64
 
-The TPU script's --pair_cap, --direct_j and --tile_cull are gone (exact pair
-buffers; the port has neither binning variant), and so is its dispatch
-round-trip correction: every call here is timed on the card's own clock.
+--direct_j and --tile_cull select the binning variants of every structure
+build (render/binning.py), as the TPU script's do. Its --pair_cap is gone
+(exact pair buffers), and so is its dispatch round-trip correction: every
+call here is timed on the card's own clock.
 """
 from __future__ import annotations
 
@@ -96,8 +98,10 @@ def _map_grad(gm, q, t, color, depth_gt, cam, ps):
     return fn
 
 
-def run_stages(prof: Profiler, gm, q, t, cam, color, depth_gt) -> None:
-    """Stage-by-stage breakdown of one fwd+bwd iteration (scripts/profile_iter.py:74-258)."""
+def run_stages(prof: Profiler, gm, q, t, cam, color, depth_gt,
+               opts: binning.BinOptions = api.CLASSIC) -> None:
+    """Stage-by-stage breakdown of one fwd+bwd iteration (scripts/profile_iter.py:74-258),
+    every structure built with the binning variants `opts`."""
     w, h = cam.width, cam.height
 
     def proj_fn():
@@ -106,10 +110,12 @@ def run_stages(prof: Profiler, gm, q, t, cam, color, depth_gt) -> None:
 
     def bins_fn():
         proj, aux = proj_fn()
-        return binning.build_bins(proj, aux, w, h, far=cam.far)
+        return binning.build_bins(proj, aux, w, h, far=cam.far, tile_cull=opts.tile_cull,
+                                  direct_j=opts.direct_j)
 
     prof.stage("projection fwd", proj_fn)
-    prof.stage("ps build (proj + bins)", lambda: steps.loss_pair_structure(gm, q, t, cam))
+    prof.stage("ps build (proj + bins)",
+               lambda: steps.loss_pair_structure(gm, q, t, cam, bin_opts=opts))
     prof.stage("  proj + build_bins (expansion + key sort)", bins_fn)
     prof.absent("padded layout + grouped sort")
     prof.absent("attr gather + transpose")
@@ -132,7 +138,7 @@ def run_stages(prof: Profiler, gm, q, t, cam, color, depth_gt) -> None:
                lambda: composite.segment_reduce(dattrs, b.dst, b.offsets, b.counts))
     prof.absent("end-slot totals extract")
 
-    ps = steps.loss_pair_structure(gm, q, t, cam)
+    ps = steps.loss_pair_structure(gm, q, t, cam, bin_opts=opts)
 
     def map_fwd_only():
         with torch.no_grad():
@@ -141,19 +147,22 @@ def run_stages(prof: Profiler, gm, q, t, cam, color, depth_gt) -> None:
     prof.stage("mapping get_loss fwd ONLY (reused ps)", map_fwd_only)
     prof.stage("tracking get_loss fwd+bwd (reused ps)",
                _track_grad(gm, q, t, color, depth_gt, cam, ps))
-    ps_w = steps.loss_pair_structure(gm, q, t, cam, with_world16=True)
+    ps_w = steps.loss_pair_structure(gm, q, t, cam, with_world16=True, bin_opts=opts)
     prof.stage("tracking get_loss fwd+bwd (pair-space)",
                _track_grad(gm, q, t, color, depth_gt, cam, ps_w))
     prof.stage("mapping get_loss fwd+bwd (reused ps)",
                _map_grad(gm, q, t, color, depth_gt, cam, ps))
 
 
-def run_summary(prof: Profiler, gm, q, t, cam, color, depth_gt) -> None:
+def run_summary(prof: Profiler, gm, q, t, cam, color, depth_gt,
+                opts: binning.BinOptions = api.CLASSIC) -> None:
     """Structure build, forward, and the two fwd+bwd flavours, with the
-    per-iteration times they imply (scripts/profile_iter.py:323-393)."""
-    ps = steps.loss_pair_structure(gm, q, t, cam)
-    print(f"n_pairs={ps.n_pairs}", flush=True)
-    t_ps = prof.stage("pair_structure build", lambda: steps.loss_pair_structure(gm, q, t, cam))
+    per-iteration times they imply (scripts/profile_iter.py:323-393); the
+    structures built with the binning variants `opts`."""
+    ps = steps.loss_pair_structure(gm, q, t, cam, bin_opts=opts)
+    print(f"n_pairs={ps.n_pairs} n_culled={ps.n_culled}", flush=True)
+    t_ps = prof.stage("pair_structure build",
+                      lambda: steps.loss_pair_structure(gm, q, t, cam, bin_opts=opts))
 
     def fwd():
         with torch.no_grad():
@@ -187,16 +196,21 @@ def main(argv=None) -> dict:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--stages", action="store_true", help="stage-by-stage breakdown")
+    ap.add_argument("--direct_j", type=int, default=0,
+                    help="the J-slot pair order (render/binning.py)")
+    ap.add_argument("--tile_cull", action="store_true",
+                    help="exact alpha-cutoff (gaussian, tile) pair culling")
     args = ap.parse_args(argv)
     device = harness.resolve_device(args.device, "profile_iter")
+    opts = binning.BinOptions(tile_cull=args.tile_cull, direct_j=args.direct_j)
     print(f"device={harness.describe(device)} n={args.n} {args.w}x{args.h} "
-          f"{'stages' if args.stages else 'summary'}", flush=True)
+          f"{'stages' if args.stages else 'summary'} {opts}", flush=True)
 
     gm, q, t, cam = scene.synthetic_scene(args.n, args.w, args.h, 1.0, device)
     color = torch.zeros((3, args.h, args.w), device=device)
     depth_gt = torch.full((args.h, args.w), 3.0, device=device)
     prof = Profiler(device, args.iters, args.reps)
-    (run_stages if args.stages else run_summary)(prof, gm, q, t, cam, color, depth_gt)
+    (run_stages if args.stages else run_summary)(prof, gm, q, t, cam, color, depth_gt, opts)
     return prof.results
 
 

@@ -14,7 +14,7 @@ import torch
 
 from splatam_tpu_torch.core.camera import Camera
 from splatam_tpu_torch.core.gaussians import GaussianMap
-from splatam_tpu_torch.render import fused_iso
+from splatam_tpu_torch.render import api, fused_iso
 from splatam_tpu_torch.slam import steps
 
 BOX_LO = (-3.0, -2.0, 0.5)
@@ -53,10 +53,11 @@ def synthetic_scene(n: int, width: int, height: int, opacity_logit: float, devic
     return gm, q, t, scene_camera(width, height, focal)
 
 
-def fused_inputs(gm: GaussianMap, q, t, cam: Camera):
+def fused_inputs(gm: GaussianMap, q, t, cam: Camera, bin_opts=api.CLASSIC):
     """The fused forward's inputs at pose (q, t): the pair structure with its
-    world-8 rows (tracking's rebin build) and the pose vector."""
-    ps = steps.loss_pair_structure(gm, q, t, cam, with_world16=True)
+    world-8 rows (tracking's rebin build, binned with `bin_opts`) and the
+    pose vector."""
+    ps = steps.loss_pair_structure(gm, q, t, cam, with_world16=True, bin_opts=bin_opts)
     rmat = fused_iso.build_rotation(fused_iso.normalize(q)[None])[0]
     width, height, intr = fused_iso._geom_for(cam)
     return ps, fused_iso.make_pose_vec(rmat, t, width, height, *intr)

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import os
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -33,6 +34,7 @@ from splatam_tpu_torch.data import frame_to_tensors, make_datasets
 from splatam_tpu_torch.eval.evaluate import eval_sequence, render_at_pose, report_progress
 from splatam_tpu_torch.io.params_io import save_params, save_params_ckpt
 from splatam_tpu_torch.parallel import spatial
+from splatam_tpu_torch.render.binning import BinOptions
 from splatam_tpu_torch.slam import optim, steps, steps_gs
 from splatam_tpu_torch.slam.config import backfill_defaults
 from splatam_tpu_torch.slam.keyframes import keyframe_selection_overlap
@@ -146,7 +148,12 @@ class SLAMRuntime:
     place of the config's (make_datasets); the live path passes its
     in-memory frame list, with no densification or tracking dataset. The
     map starts from frame 0 of the densification dataset (else the main
-    one), which must exist when the runtime is built."""
+    one), which must exist when the runtime is built.
+
+    tpu.tile_cull and tpu.direct_j (bin_opts) reach tracking's, mapping's
+    and densification's structure builds and renders, and rgbd_slam's
+    final evaluation, as the JAX runtime's phase render config does
+    (splatam_tpu/slam/pipeline.py:569-654); direct_j is 0 with bands."""
 
     def __init__(self, config: dict, device="cuda", datasets=None):
         self.config = config = backfill_defaults(config)
@@ -175,6 +182,7 @@ class SLAMRuntime:
         self.cam = setup_camera(w, h, self.intrinsics, None)
         shards = int(config["tpu"]["spatial_shards"])
         self.bands = spatial.make_bands(shards, device) if shards > 1 else None
+        self.bin_opts = BinOptions.from_config(config["tpu"], banded=self.bands is not None)
         if self.bands is not None:
             print(f"[splatam-torch] rendering in {shards} row bands of "
                   f"{spatial.band_rows(h, shards)} rows on "
@@ -350,7 +358,7 @@ class SLAMRuntime:
             q, t, it_c, _, hist = steps.tracking_phase(
                 view, q, t, col_c, dep_c, cam_c, n_it, False, 0.0, lr_q, lr_t,
                 self.pcfg_track, self.rebin_every, record_hist=self.record_hist,
-                bands=self.bands)
+                bands=self.bands, bin_opts=self.bin_opts)
             iters += it_c
             hists.append(hist)
         best_q, best_t, it_f, _, hist = steps.tracking_phase(
@@ -358,7 +366,7 @@ class SLAMRuntime:
             bool(cfg_t["use_depth_loss_thres"]), float(cfg_t["depth_loss_thres"]),
             lr_q, lr_t, self.pcfg_track, self.rebin_every,
             lr_decay_frac=float(cfg_t.get("lr_decay_frac", 1.0)),
-            record_hist=self.record_hist, bands=self.bands,
+            record_hist=self.record_hist, bands=self.bands, bin_opts=self.bin_opts,
         )
         self.iters_run = iters + it_f
         self.cam_rots[time_idx] = best_q.cpu().numpy()
@@ -381,7 +389,7 @@ class SLAMRuntime:
         cap = self.gm.capacity
         self.gm, self.timestep = steps.densify_growing(
             self.gm, self.timestep, d_color, d_depth, q, t, time_idx, self.densify_cam,
-            float(self.config["mapping"]["sil_thres"]), self.bands)
+            float(self.config["mapping"]["sil_thres"]), self.bands, self.bin_opts)
         self._report_growth(cap)
 
     def select_keyframes(self, time_idx: int, depth_np: np.ndarray) -> list:
@@ -456,7 +464,8 @@ class SLAMRuntime:
             view, self.kf_colors, self.kf_depths, slots, qs, ts, self.scene_radius,
             self.cam, num_iters, self.pcfg_map, self.prune_cfg, lrs, struct_qs, struct_ts,
             iter_idx, record_hist=self.record_hist, opt_state=opt_state, gsvars=gsvars,
-            start_iter=start_iter, track_stats=track_stats, bands=self.bands)
+            start_iter=start_iter, track_stats=track_stats, bands=self.bands,
+            bin_opts=self.bin_opts)
 
     def _map_frame_3dgs(self, time_idx: int, selected: list, num_iters: int, lrs: tuple):
         """Mapping with 3DGS clone/split between chunks (splatam_tpu/slam/
@@ -526,33 +535,68 @@ class SLAMRuntime:
         return params
 
 
-def run_frame(rt: SLAMRuntime, time_idx: int) -> None:
-    """One frame of the online loop as bench.py drives it (bench.py:92-148):
-    pose init, compact, track (or, with tracking.use_gt_poses, take the
-    ground-truth pose), densify (unless mapping.add_new_gaussians is off),
-    keyframe selection, stage the current frame, map, and append a keyframe
-    every keyframe_every frames. Tracking and densification read their
-    frames from their own datasets where their sizes differ.
+class FrameInput(NamedTuple):
+    """A frame as prepare_frame reads it."""
 
-    rgbd_slam's frame differs in three places: it adds a keyframe at
-    num_frames - 2, adds keyframes only for a finite ground-truth pose, and
-    densifies and maps only every map_every frames."""
+    color_np: np.ndarray  # [H, W, 3] as the dataset gives it
+    depth_np: np.ndarray  # [H, W, 1]
+    gt_w2c: np.ndarray  # [4, 4] ground-truth world-to-camera
+    color: torch.Tensor  # [3, H, W] on the runtime's device
+    depth: torch.Tensor  # [H, W]
+
+
+def prepare_frame(rt: SLAMRuntime, time_idx: int) -> FrameInput:
+    """The part of a frame that bench.py leaves out of its timed window
+    (bench.py:92-111): the dataset read (the synthetic sequence's host ray
+    cast), the ground-truth pose appended to rt.gt_w2c_all, the upload to
+    the device, and the pose init (rt.init_pose)."""
     color_np, depth_np, _, gt_pose = rt.dataset[time_idx]
     gt_w2c = np.linalg.inv(gt_pose)
     rt.gt_w2c_all.append(gt_w2c)
     color, depth = frame_to_tensors(color_np, depth_np, rt.device)
     rt.init_pose(time_idx)
+    return FrameInput(color_np, depth_np, gt_w2c, color, depth)
+
+
+def run_frame(rt: SLAMRuntime, time_idx: int, frame: FrameInput | None = None,
+              mark=None) -> None:
+    """One frame of the online loop as bench.py drives it (bench.py:92-148):
+    prepare_frame (unless the caller passes its `frame`), compact, track
+    (or, with tracking.use_gt_poses, take the ground-truth pose), densify
+    (unless mapping.add_new_gaussians is off), keyframe selection, stage the
+    current frame, map, and append a keyframe every keyframe_every frames.
+    Tracking and densification read their frames from their own datasets
+    where their sizes differ.
+
+    mark(stage), when given, is called as each stage ends: "compact",
+    "track" and "densify" (frames after the first), "select_kf",
+    "stage_kf" and "map" (bench.py's BENCH_STAGES split; the keyframe
+    append comes after "map").
+
+    rgbd_slam's frame differs in three places: it adds a keyframe at
+    num_frames - 2, adds keyframes only for a finite ground-truth pose, and
+    densifies and maps only every map_every frames."""
+    if frame is None:
+        frame = prepare_frame(rt, time_idx)
+    mark = mark or (lambda stage: None)
+    color_np, depth_np, color, depth = frame.color_np, frame.depth_np, frame.color, frame.depth
     rt.compact()
+    mark("compact")
     if time_idx > 0:
         if rt.config["tracking"].get("use_gt_poses", False):
-            rt.set_gt_pose(time_idx, gt_w2c)
+            rt.set_gt_pose(time_idx, frame.gt_w2c)
         else:
             rt.track_frame(time_idx, *rt.frame_at(rt.tracking_dataset, time_idx, color, depth))
+        mark("track")
         if rt.config["mapping"]["add_new_gaussians"]:
             rt.densify_frame(time_idx, *rt.frame_at(rt.densify_dataset, time_idx, color, depth))
+        mark("densify")
     selected = rt.select_keyframes(time_idx, depth_np)
+    mark("select_kf")
     rt._stage_keyframe(rt.kf_scratch_slot, color_np, depth_np)
+    mark("stage_kf")
     rt.map_frame(time_idx, selected)
+    mark("map")
     if time_idx == 0 or (time_idx + 1) % rt.config["keyframe_every"] == 0:
         rt.add_keyframe(time_idx, color_np, depth_np)
 
@@ -753,7 +797,7 @@ def rgbd_slam(config: dict, device="cuda") -> dict:
         rt.dataset, final_params, rt.num_frames, rt.eval_dir,
         sil_thres=cfg_m["sil_thres"], mapping_iters=cfg_m["num_iters"],
         add_new_gaussians=cfg_m["add_new_gaussians"], eval_every=config["eval_every"],
-        device=rt.device)
+        device=rt.device, bin_opts=rt.bin_opts)
     save_params(final_params, rt.output_dir)
     metrics["runtime"] = runtime
     logger.log({

@@ -10,7 +10,10 @@ densification's candidate count.
 
 Every phase takes `bands` (parallel.spatial.make_bands; None = one image):
 its renders then run per band of rows and the loss on the gathered image,
-as the JAX package's phases do with a mesh.
+as the JAX package's phases do with a mesh. Every phase also takes
+`bin_opts` (render.binning.BinOptions, the config's tpu.tile_cull and
+tpu.direct_j), which reaches each of its structure builds and each render
+that bins, as the JAX package's phases pass their RenderConfig.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from splatam_tpu_torch.core.losses import calc_ssim
 from splatam_tpu_torch.core.transforms import build_rotation, normalize, quat_mult
 from splatam_tpu_torch.parallel import spatial
 from splatam_tpu_torch.render import api, pairspace
+from splatam_tpu_torch.render.binning import BinOptions
 from splatam_tpu_torch.render.fused_iso import pack_world8
 from splatam_tpu_torch.slam import optim
 
@@ -75,7 +79,8 @@ def _median_lower(x: torch.Tensor) -> torch.Tensor:
 
 def loss_render(gm: GaussianMap, q, t, cam: Camera, tracking: bool, mapping: bool,
                 pair_structure: api.PairStructure | None = None, means2d_dummy=None,
-                bands: list | None = None) -> api.RenderOutput:
+                bands: list | None = None, bin_opts: BinOptions = api.CLASSIC
+                ) -> api.RenderOutput:
     """get_loss's render, routed as the JAX package routes it: tracking
     with a world-8/16 structure renders in pair space (gradients to the
     pose), mapping an isotropic map with a structure and no means2d_dummy
@@ -106,17 +111,20 @@ def loss_render(gm: GaussianMap, q, t, cam: Camera, tracking: bool, mapping: boo
     args = (means_cam, keep(gm.rgb_colors), rots_cam, keep(gm.logit_opacities),
             keep(gm.log_scales), gm.active)
     if bands is None:
-        return api.render_rgbd_sil(cam, *args, pair_structure=ps, means2d_dummy=means2d_dummy)
+        return api.render_rgbd_sil(cam, *args, pair_structure=ps, means2d_dummy=means2d_dummy,
+                                   bin_opts=bin_opts)
     return spatial.render_rgbd_sil_sharded(bands, cam, *args, means2d_dummy=means2d_dummy,
-                                           pair_structure=ps)
+                                           pair_structure=ps, bin_opts=bin_opts)
 
 
 def get_loss(gm: GaussianMap, q, t, color, depth_gt, cam: Camera, pcfg: PhaseConfig,
              tracking: bool, mapping: bool, pair_structure: api.PairStructure | None = None,
-             means2d_dummy=None, bands: list | None = None):
+             means2d_dummy=None, bands: list | None = None,
+             bin_opts: BinOptions = api.CLASSIC):
     """Reference get_loss on loss_render's image (with `bands`, the loss
     below runs once, on the gathered image)."""
-    out = loss_render(gm, q, t, cam, tracking, mapping, pair_structure, means2d_dummy, bands)
+    out = loss_render(gm, q, t, cam, tracking, mapping, pair_structure, means2d_dummy, bands,
+                      bin_opts)
     depth = out.depth
     silhouette = out.silhouette
     uncertainty = (out.depth_sq - depth * depth).detach()
@@ -166,7 +174,7 @@ def get_loss(gm: GaussianMap, q, t, color, depth_gt, cam: Camera, pcfg: PhaseCon
 
 
 def loss_pair_structure(gm: GaussianMap, q, t, cam: Camera, with_world16: bool = False,
-                        bands: list | None = None):
+                        bands: list | None = None, bin_opts: BinOptions = api.CLASSIC):
     """The reusable binning structure for a get_loss render at this pose and
     parameter snapshot; with_world16 also gathers the world rows per sorted
     pair for the pair-space tracking render (tracking's rebin sites):
@@ -186,15 +194,16 @@ def loss_pair_structure(gm: GaussianMap, q, t, cam: Camera, with_world16: bool =
         args = (cam, means_cam, rots_cam, gm.logit_opacities, gm.log_scales, gm.active)
         if bands is not None:
             return spatial.compute_pair_structure_sharded(bands, *args, world_rows=rows16,
-                                                          world_rows8=rows8)
-        return api.compute_pair_structure(*args, world_rows=rows16, world_rows8=rows8)
+                                                          world_rows8=rows8, bin_opts=bin_opts)
+        return api.compute_pair_structure(*args, world_rows=rows16, world_rows8=rows8,
+                                          bin_opts=bin_opts)
 
 
 def tracking_phase(gm: GaussianMap, q0, t0, color, depth_gt, cam: Camera, num_iters: int,
                    use_depth_loss_thres: bool, depth_loss_thres: float, lr_q: float,
                    lr_t: float, pcfg: PhaseConfig, rebin_every: int,
                    lr_decay_frac: float = 1.0, record_hist: bool = False,
-                   bands: list | None = None):
+                   bands: list | None = None, bin_opts: BinOptions = api.CLASSIC):
     """Tracking optimization for one frame: fresh Adam on (q, t); the
     best-loss candidate pairs the post-step pose with the pre-step loss (a
     reference quirk kept); optional one-time doubling of the iteration count
@@ -211,7 +220,8 @@ def tracking_phase(gm: GaussianMap, q0, t0, color, depth_gt, cam: Camera, num_it
     gm = GaussianMap(*(a.detach() for a in gm))
     qt = (q0.detach().clone(), t0.detach().clone())
     st = optim.adam_init(qt)
-    ps = (loss_pair_structure(gm, q0, t0, cam, with_world16=True, bands=bands)
+    ps = (loss_pair_structure(gm, q0, t0, cam, with_world16=True, bands=bands,
+                              bin_opts=bin_opts)
           if use_rebin else None)
     best_q, best_t = q0.detach().clone(), t0.detach().clone()
     min_loss = torch.tensor(1e20, dtype=torch.float32, device=q0.device)
@@ -219,11 +229,12 @@ def tracking_phase(gm: GaussianMap, q0, t0, color, depth_gt, cam: Camera, num_it
     limit, it = num_iters, 0
     while it < limit:
         if use_rebin and it > 0 and it % rebin_every == 0:
-            ps = loss_pair_structure(gm, qt[0], qt[1], cam, with_world16=True, bands=bands)
+            ps = loss_pair_structure(gm, qt[0], qt[1], cam, with_world16=True, bands=bands,
+                                     bin_opts=bin_opts)
         q = qt[0].requires_grad_(True)
         t = qt[1].requires_grad_(True)
         loss, aux = get_loss(gm, q, t, color, depth_gt, cam, pcfg, True, False, ps,
-                             bands=bands)
+                             bands=bands, bin_opts=bin_opts)
         grads = torch.autograd.grad(loss, (q, t))
         decay = 1.0
         if lr_decay_frac < 1.0:
@@ -285,7 +296,7 @@ def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs,
                   prune_cfg: PruneConfig, lrs: tuple, struct_qs=None, struct_ts=None,
                   iter_struct_idx=None, record_hist: bool = False, opt_state=None,
                   gsvars=None, start_iter: int = 0, track_stats: bool = False,
-                  bands: list | None = None):
+                  bands: list | None = None, bin_opts: BinOptions = api.CLASSIC):
     """Mapping iterations for one frame over keyframes drawn by the host.
 
     iter_slots: per-iteration keyframe-store slot. With a distinct-keyframe
@@ -315,7 +326,7 @@ def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs,
     gm = GaussianMap(*(a.detach() for a in gm))
     structs = None
     if struct_qs is not None:
-        structs = [loss_pair_structure(gm, sq, st_, cam, bands=bands)
+        structs = [loss_pair_structure(gm, sq, st_, cam, bands=bands, bin_opts=bin_opts)
                    for sq, st_ in zip(struct_qs, struct_ts)]
     keys = tuple(k for k in MAP_PARAMS if not (gm.isotropic and k == "unnorm_rotations"))
     plrs = tuple(lrs[MAP_PARAMS.index(k)] for k in keys)
@@ -338,7 +349,8 @@ def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs,
         dummy = (torch.zeros((gm.capacity, 2), device=dev, requires_grad=True)
                  if track_stats else None)
         loss, aux = get_loss(gm_i, iter_qs[i], iter_ts[i], color, depth_gt, cam, pcfg,
-                             False, True, ps, means2d_dummy=dummy, bands=bands)
+                             False, True, ps, means2d_dummy=dummy, bands=bands,
+                             bin_opts=bin_opts)
         wrt = tuple(p.values()) + ((dummy,) if track_stats else ())
         grads = torch.autograd.grad(loss, wrt)
         if track_stats:
@@ -399,8 +411,8 @@ def backproject_pointcloud(color, depth, fx, fy, cx, cy, c2w):
 
 
 @torch.no_grad()
-def densify_render(gm: GaussianMap, q, t, cam: Camera, bands: list | None = None
-                   ) -> api.RenderOutput:
+def densify_render(gm: GaussianMap, q, t, cam: Camera, bands: list | None = None,
+                   bin_opts: BinOptions = api.CLASSIC) -> api.RenderOutput:
     """densify_step's render of the map's live span at pose (q, t); with
     `bands`, per band."""
     span = gm.span()
@@ -408,8 +420,8 @@ def densify_render(gm: GaussianMap, q, t, cam: Camera, bands: list | None = None
     means_cam, rots_cam = transform_to_frame(view, q, t, False, False)
     args = (means_cam, view.rgb_colors, rots_cam, view.logit_opacities, view.log_scales,
             view.active)
-    return (api.render_rgbd_sil(cam, *args) if bands is None else
-            spatial.render_rgbd_sil_sharded(bands, cam, *args))
+    return (api.render_rgbd_sil(cam, *args, bin_opts=bin_opts) if bands is None else
+            spatial.render_rgbd_sil_sharded(bands, cam, *args, bin_opts=bin_opts))
 
 
 def densify_candidates(out: api.RenderOutput, depth_gt, sil_thres: float) -> torch.Tensor:
@@ -425,14 +437,15 @@ def densify_candidates(out: api.RenderOutput, depth_gt, sil_thres: float) -> tor
 
 @torch.no_grad()
 def densify_step(gm: GaussianMap, timestep, color, depth_gt, q, t, time_idx: int,
-                 cam: Camera, sil_thres: float, bands: list | None = None):
+                 cam: Camera, sil_thres: float, bands: list | None = None,
+                 bin_opts: BinOptions = api.CLASSIC):
     """add_new_gaussians (scripts/splatam.py:378-420): backproject every
     pixel the map does not explain (densify_candidates of densify_render)
     into the lowest free slots; with `bands`, its render runs per band.
 
     Returns (gm, timestep, n_added, n_dropped); with n_dropped > 0 nothing
     is written and the caller grows the capacity and retries."""
-    out = densify_render(gm, q, t, cam, bands)
+    out = densify_render(gm, q, t, cam, bands, bin_opts)
     cand = torch.nonzero(densify_candidates(out, depth_gt, sil_thres).reshape(-1))[:, 0]
     free = torch.nonzero(~gm.active)[:, 0]
     n_cand, n_free = cand.shape[0], free.shape[0]
@@ -460,13 +473,14 @@ def densify_step(gm: GaussianMap, timestep, color, depth_gt, q, t, time_idx: int
 
 
 def densify_growing(gm: GaussianMap, timestep, color, depth_gt, q, t, time_idx: int,
-                    cam: Camera, sil_thres: float, bands: list | None = None):
+                    cam: Camera, sil_thres: float, bands: list | None = None,
+                    bin_opts: BinOptions = api.CLASSIC):
     """densify_step, the capacity doubled (grow_with_timestep) and the step
     retried until every candidate finds a free slot. Returns (gm,
     timestep)."""
     while True:
         gm2, ts2, _, n_dropped = densify_step(gm, timestep, color, depth_gt, q, t, time_idx,
-                                              cam, sil_thres, bands)
+                                              cam, sil_thres, bands, bin_opts)
         if n_dropped == 0:
             return gm2, ts2
         cap = gm.capacity

@@ -5,8 +5,9 @@ the card (the port of tests/test_gauntlet.py).
 On the CPU:
 - every variant's config, with and without overrides, equals the JAX
   run_variant's; each flag (--map_iters, --bootstrap, --cur_prob, --c2f)
-  sets what its JAX environment variable or flag sets. Both packages'
-  rgbd_slam are patched to capture the config, so no loop runs;
+  sets what its JAX environment variable or flag sets, and so do
+  --direct_j and --tile_cull. Both packages' rgbd_slam are patched to
+  capture the config, so no loop runs;
 - one tiny variant end to end in both packages (clean, 3 frames, 64x48,
   3/3 iterations): poses within 1e-4 and PSNR within 0.05 dB, the
   tolerances of tests/test_torch_rgbd_slam.py;
@@ -104,11 +105,27 @@ def test_flags_set_what_the_jax_environment_sets(jax_side, captured, tmp_path, m
             mapping["current_frame_prob"]) == (9, 2, 17, 0.3)
 
 
-def test_refused_flags_exit_2():
-    for flag in (["--direct_j", "2"], ["--tile_cull"]):
-        with pytest.raises(SystemExit) as e:
-            gauntlet.main([*flag, "--device", "cpu"])
-        assert e.value.code == 2
+def test_refused_flags_exit_2(jax_side, captured, tmp_path, monkeypatch):
+    """--direct_j and --tile_cull, which the port once refused, set
+    tpu.direct_j and tpu.tile_cull in the variant's config as the JAX
+    script's flags do; a flag the port does not take (the JAX script's
+    --cpu, which is --device cpu here) still exits 2."""
+    common = ["--variant", "clean", "--frames", "5", "--h", "48", "--w", "64",
+              "--workdir", str(tmp_path)]
+    for flags in (["--direct_j", "2"], ["--tile_cull"], ["--direct_j", "3", "--tile_cull"]):
+        captured["jax"].clear()
+        captured["port"].clear()
+        monkeypatch.setattr(sys, "argv", ["gauntlet.py", *common, *flags, "--cpu"])
+        j_gauntlet.main()
+        gauntlet.main([*common, *flags, "--device", "cpu"])
+        assert len(captured["port"]) == 1 and captured["port"] == captured["jax"]
+        tpu = captured["port"][0]["tpu"]
+        j = int(flags[1]) if flags[0] == "--direct_j" else 0
+        assert tpu.get("direct_j", 0) == j
+        assert tpu.get("tile_cull", False) == ("--tile_cull" in flags)
+    with pytest.raises(SystemExit) as e:
+        gauntlet.main(["--cpu"])
+    assert e.value.code == 2
 
 
 def test_main_exits_1_when_a_floor_breaks(tmp_path, monkeypatch):

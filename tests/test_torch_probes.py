@@ -238,3 +238,13 @@ def test_scripts_refuse_to_fall_back_to_cpu(mod, capsys):
         mod.main(["--n", "100"])
     assert exc.value.code != 0
     assert "--device cpu" in capsys.readouterr().err
+
+
+def test_profile_iter_takes_the_binning_variants(capsys):
+    """--tile_cull and --direct_j reach every structure build, as the TPU
+    script's flags do: the summary's structure drops pairs."""
+    profile_iter.main(MICRO + ["--tile_cull", "--direct_j", "2"])
+    out = capsys.readouterr().out.splitlines()
+    assert "BinOptions(tile_cull=True, direct_j=2)" in out[0]
+    counts = next(line for line in out if line.startswith("n_pairs="))
+    assert int(counts.split("n_culled=")[1]) > 0, counts

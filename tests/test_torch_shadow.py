@@ -69,7 +69,8 @@ def test_shadow_errors_match_jax(tmp_path, monkeypatch, capsys):
 
 def test_shadow_main_on_the_cpu(tmp_path, capsys, monkeypatch):
     """main prints the per-frame lines and the JAX script's summary (mapping
-    cut to 1 iteration); its --direct_j refuses with exit 2."""
+    cut to 1 iteration); its --direct_j sets tpu.direct_j, as the JAX
+    script's does."""
     config_of = shadow.shadow_config
 
     def cut(*args):
@@ -82,6 +83,8 @@ def test_shadow_main_on_the_cpu(tmp_path, capsys, monkeypatch):
                         "--iters", "1", "--workdir", str(tmp_path)])
     out = capsys.readouterr().out
     assert len(LINE.findall(out)) == 1 == len(t) and "rotation deg:" in out
-    with pytest.raises(SystemExit) as e:
-        shadow.main(["--device", "cpu", "--direct_j", "2"])
-    assert e.value.code == 2
+    seen = []
+    monkeypatch.setattr(shadow, "shadow_errors",
+                        lambda config, device: seen.append(config) or (t, r))
+    shadow.main(["--device", "cpu", "--direct_j", "2", "--workdir", str(tmp_path)])
+    assert seen[0]["tpu"]["direct_j"] == 2 and "direct_j" not in cut()["tpu"]
