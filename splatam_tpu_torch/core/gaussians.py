@@ -13,6 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from splatam_tpu_torch.utils import spans
+
 
 class GaussianMap(NamedTuple):
     """Per-Gaussian parameters padded to capacity CAP.
@@ -45,12 +47,14 @@ class GaussianMap(NamedTuple):
         return self.means3d.device
 
     def num_active(self) -> int:
-        return int(self.active.sum())
+        with spans.waited("map.num_active"):
+            return int(self.active.sum())
 
     def span(self) -> int:
         """One past the last active slot (0 for an empty map)."""
-        idx = torch.nonzero(self.active)
-        return int(idx[-1, 0]) + 1 if idx.numel() else 0
+        with spans.waited("map.span"):  # the nonzero, then its last row read back
+            idx = torch.nonzero(self.active)
+            return int(idx[-1, 0]) + 1 if idx.numel() else 0
 
 
 def empty_map(capacity: int, isotropic: bool, device) -> GaussianMap:

@@ -12,6 +12,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from splatam_tpu_torch.utils import spans
+
 
 def l1_loss_v1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.abs(x - y).mean()
@@ -45,7 +47,8 @@ def _blur_sep(img: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
 def calc_ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
               size_average: bool = True) -> torch.Tensor:
     """SSIM over [C, H, W] images in [0, 1]."""
-    window = torch.as_tensor(_gaussian_window(window_size, 1.5), device=img1.device)
+    with spans.waited("loss.ssim_window"):  # a blocking upload
+        window = torch.as_tensor(_gaussian_window(window_size, 1.5), device=img1.device)
     mu1 = _blur_sep(img1, window)
     mu2 = _blur_sep(img2, window)
     mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2

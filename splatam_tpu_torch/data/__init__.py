@@ -25,6 +25,7 @@ from splatam_tpu_torch.data.scannet import Ai2thorDataset, ScannetDataset
 from splatam_tpu_torch.data.scannetpp import ScannetPPDataset
 from splatam_tpu_torch.data.synthetic import SyntheticDataset
 from splatam_tpu_torch.data.tum import TUMDataset
+from splatam_tpu_torch.utils import spans
 
 _BY_NAME = {"icl": ICLDataset, "replica": ReplicaDataset, "replicav2": ReplicaV2Dataset,
             "azure": AzureKinectDataset, "azurekinect": AzureKinectDataset,
@@ -115,4 +116,8 @@ def frame_to_tensors(color_np, depth_np, device):
     `device`, float32."""
     color = torch.as_tensor(color_np.transpose(2, 0, 1) / 255.0, dtype=torch.float32)
     depth = torch.as_tensor(depth_np[..., 0], dtype=torch.float32)
-    return color.to(device), depth.to(device)
+    with spans.waited("frame.upload"):  # blocking copies from pageable memory
+        color = color.to(device)
+    with spans.waited("frame.upload"):
+        depth = depth.to(device)
+    return color, depth

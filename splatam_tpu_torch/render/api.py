@@ -26,6 +26,7 @@ from splatam_tpu_torch.render import binning as binning_mod
 from splatam_tpu_torch.render import composite, composite_tiles, fused_iso, naive, pairspace
 from splatam_tpu_torch.render import projection as projection_mod
 from splatam_tpu_torch.render.binning import BinOptions
+from splatam_tpu_torch.utils import spans
 
 CLASSIC = BinOptions()
 
@@ -80,8 +81,10 @@ def project_gaussians(cam: Camera, means3d, unnorm_rotations, logit_opacities, l
     quats, logit_op, scales = _prep_gaussians(unnorm_rotations, logit_opacities, log_scales)
     fx, fy, cx, cy = (intrinsics_override if intrinsics_override is not None
                       else (cam.fx, cam.fy, cam.cx, cam.cy))
+    with spans.waited("render.w2c"):  # a blocking upload
+        w2c = cam.w2c_tensor(means3d.device)
     return projection_mod.project(
-        means3d, quats, logit_op, scales, active, cam.w2c_tensor(means3d.device),
+        means3d, quats, logit_op, scales, active, w2c,
         fx, fy, cx, cy, cam.width, cam.height, lim_wh=lim_wh,
     )
 
@@ -99,18 +102,20 @@ def compute_pair_structure(cam: Camera, means3d, unnorm_rotations, logit_opaciti
     world_rows [N, 13] (pairspace.pack_world_rows) also gathers the
     structure's world16 per sorted pair for the pair-space tracking render
     of an anisotropic map, world_rows8 [N, 8] (fused_iso.pack_world8) its
-    world8 for the fused one of an isotropic map; at most one of the two."""
+    world8 for the fused one of an isotropic map; at most one of the two.
+    The span `build` (utils/spans.py)."""
     if world_rows is not None and world_rows8 is not None:
         raise ValueError("world_rows and world_rows8 exclude each other: a structure carries "
                          "world-16 rows (anisotropic map) or world-8 rows (isotropic map)")
-    proj, aux = project_gaussians(cam, means3d, unnorm_rotations, logit_opacities,
-                                  log_scales, active, intrinsics_override, lim_wh)
-    ps = _bins(proj, aux, cam, lim_wh, bin_opts)
-    idx = ps.pair_gauss.long()
-    if world_rows8 is not None:
-        ps = ps._replace(world8=world_rows8[idx].contiguous())
-    elif world_rows is not None:
-        ps = ps._replace(world16=world_rows[idx].contiguous())
+    with spans.span("build"):
+        proj, aux = project_gaussians(cam, means3d, unnorm_rotations, logit_opacities,
+                                      log_scales, active, intrinsics_override, lim_wh)
+        ps = _bins(proj, aux, cam, lim_wh, bin_opts)
+        idx = ps.pair_gauss.long()
+        if world_rows8 is not None:
+            ps = ps._replace(world8=world_rows8[idx].contiguous())
+        elif world_rows is not None:
+            ps = ps._replace(world16=world_rows[idx].contiguous())
     return ps
 
 
@@ -141,6 +146,12 @@ def _bins(proj, aux, cam: Camera, lim_wh=None, bin_opts: BinOptions = CLASSIC
                          n_culled=b.n_culled)
 
 
+def _build(proj, aux, cam: Camera, lim_wh, bin_opts: BinOptions) -> PairStructure:
+    """The generic render's own binning, as the span `build`."""
+    with spans.span("build"):
+        return _bins(proj, aux, cam, lim_wh, bin_opts)
+
+
 def _render(cam: Camera, means3d, colors, unnorm_rotations, logit_opacities, log_scales, active,
             backend, means2d_dummy, append_depth, intrinsics_override, lim_wh, pair_structure,
             bin_opts):
@@ -168,7 +179,7 @@ def _render(cam: Camera, means3d, colors, unnorm_rotations, logit_opacities, log
         chans = torch.cat([colors, *extra], dim=1)
     if kernels:
         composite.check_channels(chans.shape[1])
-        ps = pair_structure or _bins(proj, aux, cam, lim_wh, bin_opts)
+        ps = pair_structure or _build(proj, aux, cam, lim_wh, bin_opts)
         img = composite.CompositeGauss.apply(xy, proj.conic, opacity, chans, ps,
                                              cam.width, cam.height)
         return img, aux.radius, ps.n_pairs
@@ -176,7 +187,7 @@ def _render(cam: Camera, means3d, colors, unnorm_rotations, logit_opacities, log
         img = naive.composite_naive(proj._replace(xy=xy, opacity=opacity), aux, chans,
                                     cam.width, cam.height)
         return img, aux.radius, 0
-    ps = pair_structure or _bins(proj, aux, cam, lim_wh, bin_opts)
+    ps = pair_structure or _build(proj, aux, cam, lim_wh, bin_opts)
     lists, lens = composite_tiles.tile_lists(ps.pair_gauss, ps.tile_start)
     px, py = (torch.from_numpy(a).to(xy.device)
               for a in composite_tiles.tile_pixel_coords(cam.width, cam.height))

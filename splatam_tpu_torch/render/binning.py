@@ -10,8 +10,8 @@ What differs from the reference, because this runs on a GPU:
   * the key is int64 with the tile id in the high bits, so no offset has
     to be packed into 23 bits and there is no pair_cap limit;
   * pair buffers are sized to the exact pair count, read back with one
-    host sync per structure build (renderCUDA does the same), so nothing
-    overflows and nothing is retried;
+    host sync per structure build (renderCUDA does the same; the `waited`
+    site bins.total), so nothing overflows and nothing is retried;
   * the per-tile layout is the sorted stream itself (tile t owns pairs
     tile_start[t] .. tile_start[t+1]); no padding to 128-lane chunks.
 
@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from splatam_tpu_torch.render.projection import NEAR_CLIP, TILE, Projected, ProjectedAux
+from splatam_tpu_torch.utils import spans
 
 
 class Bins(NamedTuple):
@@ -153,7 +154,8 @@ def build_bins(proj: Projected, aux: ProjectedAux, width: int, height: int,
     rect_w = aux.rect_wh[:, 0]
     counts = torch.where(aux.visible, rect_w * aux.rect_wh[:, 1], torch.zeros_like(rect_w))
     offsets = torch.cumsum(counts, 0) - counts
-    total = int(counts.sum())  # the one host sync of a structure build without the cull
+    with spans.waited("bins.total"):  # the pair count that sizes the buffers
+        total = int(counts.sum())
 
     qdepth = quantized_depth(proj.depth, bits, far)
 
@@ -167,11 +169,13 @@ def build_bins(proj: Projected, aux: ProjectedAux, width: int, height: int,
     if tile_cull:
         rows = torch.cat([proj.xy, proj.conic, cull_cut(proj.opacity)[:, None]], 1)[g]
         culled = tile_culled(tx, ty, *rows.unbind(1))
-        keep = torch.nonzero((j == 0) | ~culled)[:, 0]  # the kept count: a host sync
+        with spans.waited("bins.cull"):  # the kept count
+            keep = torch.nonzero((j == 0) | ~culled)[:, 0]
         g, j, tx, ty = g[keep], j[keep], tx[keep], ty[keep]
         n_culled = total - g.shape[0]
         total = g.shape[0]
-        counts = torch.bincount(g, minlength=n)
+        with spans.waited("bins.cull"):  # bincount reads its largest index back
+            counts = torch.bincount(g, minlength=n)
         offsets = torch.cumsum(counts, 0) - counts
     key = ((ty * grid_x + tx) << bits) | qdepth[g]
     key_bits = bits

@@ -37,6 +37,7 @@ from splatam_tpu_torch.render.composite import (
     segment_reduce,
 )
 from splatam_tpu_torch.render.projection import NEAR_CLIP
+from splatam_tpu_torch.utils import spans
 
 W8 = 8
 POSE_LEN = 24
@@ -55,11 +56,13 @@ def pack_world8(means3d, logit_opacities, log_scales, rgb_colors, active):
 
 
 def make_pose_vec(rmat, t, width, height, fx, fy, cx, cy, limx, limy):
-    """[POSE_LEN] f32 pose/intrinsics vector on rmat's device."""
-    intr = torch.tensor(
-        [fx, fy, cx, cy, limx, limy, 2.0 * fx / width, (width - 2.0 * cx) / width,
-         2.0 * fy / height, (height - 2.0 * cy) / height, 0.0, 0.0],
-        dtype=torch.float32, device=rmat.device)
+    """[POSE_LEN] f32 pose/intrinsics vector on rmat's device (the
+    intrinsics a blocking upload)."""
+    with spans.waited("render.pose_vec"):
+        intr = torch.tensor(
+            [fx, fy, cx, cy, limx, limy, 2.0 * fx / width, (width - 2.0 * cx) / width,
+             2.0 * fy / height, (height - 2.0 * cy) / height, 0.0, 0.0],
+            dtype=torch.float32, device=rmat.device)
     return torch.cat([rmat.reshape(9).float(), t.reshape(3).float(), intr])
 
 

@@ -38,6 +38,7 @@ from splatam_tpu_torch.render.binning import BinOptions
 from splatam_tpu_torch.slam import optim, steps, steps_gs
 from splatam_tpu_torch.slam.config import backfill_defaults
 from splatam_tpu_torch.slam.keyframes import keyframe_selection_overlap
+from splatam_tpu_torch.utils import spans
 from splatam_tpu_torch.utils.device import require_device
 from splatam_tpu_torch.viz.panels import PanelFigure
 
@@ -128,6 +129,13 @@ def _w2c_from_qt(q: np.ndarray, t: np.ndarray) -> np.ndarray:
     )
     w2c[:3, 3] = t
     return w2c
+
+
+def _upload(a, device, site: str) -> torch.Tensor:
+    """torch.as_tensor(a, device=device): onto the card, a blocking copy
+    from pageable host memory, which waits for the card's queue first."""
+    with spans.waited(site):
+        return torch.as_tensor(a, device=device)
 
 
 def _sync(device: torch.device) -> None:
@@ -257,8 +265,10 @@ class SLAMRuntime:
         print(f"[splatam-torch] grew keyframe store to {new_cap} slots")
 
     def _stage_keyframe(self, slot: int, color_np: np.ndarray, depth_np: np.ndarray) -> None:
-        self.kf_colors[slot] = torch.as_tensor(np.clip(color_np, 0, 255).astype(np.uint8))
-        self.kf_depths[slot] = torch.as_tensor(depth_np[..., 0], dtype=torch.float32)
+        with spans.waited("kf.upload"):
+            self.kf_colors[slot] = torch.as_tensor(np.clip(color_np, 0, 255).astype(np.uint8))
+        with spans.waited("kf.upload"):
+            self.kf_depths[slot] = torch.as_tensor(depth_np[..., 0], dtype=torch.float32)
 
     def add_keyframe(self, time_idx: int, color_np: np.ndarray, depth_np: np.ndarray) -> None:
         """Stage the frame into the next store slot (growing the store when
@@ -340,8 +350,8 @@ class SLAMRuntime:
         threshold applies at full resolution only."""
         cfg_t = self.config["tracking"]
         view = G.slice_prefix(self.gm, self.gm.span())
-        q = torch.as_tensor(self.cam_rots[time_idx], device=self.device)
-        t = torch.as_tensor(self.cam_trans[time_idx], device=self.device)
+        q = _upload(self.cam_rots[time_idx], self.device, "track.pose_upload")
+        t = _upload(self.cam_trans[time_idx], self.device, "track.pose_upload")
         lr_q, lr_t = float(cfg_t["lrs"]["cam_unnorm_rots"]), float(cfg_t["lrs"]["cam_trans"])
         levels = self._c2f_levels()
         full_iters = int(cfg_t["num_iters"])
@@ -369,10 +379,15 @@ class SLAMRuntime:
             record_hist=self.record_hist, bands=self.bands, bin_opts=self.bin_opts,
         )
         self.iters_run = iters + it_f
-        self.cam_rots[time_idx] = best_q.cpu().numpy()
-        self.cam_trans[time_idx] = best_t.cpu().numpy()
-        self.tracking_hist = (None if hist is None
-                              else torch.cat(hists + [hist]).cpu().numpy())
+        self.tracking_hist = None
+        with spans.span("readback"):
+            with spans.waited("track.readback"):
+                self.cam_rots[time_idx] = best_q.cpu().numpy()
+            with spans.waited("track.readback"):
+                self.cam_trans[time_idx] = best_t.cpu().numpy()
+            if hist is not None:
+                with spans.waited("track.hist_readback"):
+                    self.tracking_hist = torch.cat(hists + [hist]).cpu().numpy()
 
     def frame_at(self, dataset, time_idx: int, color, depth):
         """Frame time_idx of the tracking or densification dataset on the
@@ -384,8 +399,8 @@ class SLAMRuntime:
         return frame_to_tensors(c, d, self.device)
 
     def densify_frame(self, time_idx: int, d_color, d_depth) -> None:
-        q = torch.as_tensor(self.cam_rots[time_idx], device=self.device)
-        t = torch.as_tensor(self.cam_trans[time_idx], device=self.device)
+        q = _upload(self.cam_rots[time_idx], self.device, "densify.pose_upload")
+        t = _upload(self.cam_trans[time_idx], self.device, "densify.pose_upload")
         cap = self.gm.capacity
         self.gm, self.timestep = steps.densify_growing(
             self.gm, self.timestep, d_color, d_depth, q, t, time_idx, self.densify_cam,
@@ -426,11 +441,11 @@ class SLAMRuntime:
                 slots.append(self.keyframe_list[sel]["slot"])
         uniq: dict = {}
         iter_idx = [uniq.setdefault(f, len(uniq)) for f in frame_ids]
-        dev = self.device
-        qs = torch.as_tensor(np.stack([self.cam_rots[f] for f in frame_ids]), device=dev)
-        ts = torch.as_tensor(np.stack([self.cam_trans[f] for f in frame_ids]), device=dev)
-        struct_qs = torch.as_tensor(np.stack([self.cam_rots[f] for f in uniq]), device=dev)
-        struct_ts = torch.as_tensor(np.stack([self.cam_trans[f] for f in uniq]), device=dev)
+        dev, site = self.device, "map.pose_upload"
+        qs = _upload(np.stack([self.cam_rots[f] for f in frame_ids]), dev, site)
+        ts = _upload(np.stack([self.cam_trans[f] for f in frame_ids]), dev, site)
+        struct_qs = _upload(np.stack([self.cam_rots[f] for f in uniq]), dev, site)
+        struct_ts = _upload(np.stack([self.cam_trans[f] for f in uniq]), dev, site)
         return slots, qs, ts, struct_qs, struct_ts, iter_idx
 
     def map_frame(self, time_idx: int, selected: list) -> None:
@@ -449,15 +464,17 @@ class SLAMRuntime:
                                                G.slice_prefix(self.gm, self.gm.span()))
         self.gm = G.write_prefix(self.gm, view)
         if hist is not None:
-            self.mapping_hist = hist.cpu().numpy()
+            with spans.waited("map.hist_readback"):
+                self.mapping_hist = hist.cpu().numpy()
 
     def _mapping_chunk(self, time_idx: int, selected: list, num_iters: int, lrs: tuple, view,
                        opt_state=None, gsvars=None, start_iter: int = 0,
                        track_stats: bool = False):
         """mapping_phase on the view for num_iters iterations, with this
         chunk's keyframe draws (and, at rebin_every > 1, its structures)."""
-        slots, qs, ts, struct_qs, struct_ts, iter_idx = self._mapping_inputs(
-            time_idx, selected, num_iters)
+        with spans.span("draw"):
+            slots, qs, ts, struct_qs, struct_ts, iter_idx = self._mapping_inputs(
+                time_idx, selected, num_iters)
         if self.rebin_every <= 1:  # every iteration bins anew
             struct_qs = struct_ts = iter_idx = None
         return steps.mapping_phase(
@@ -549,12 +566,13 @@ def prepare_frame(rt: SLAMRuntime, time_idx: int) -> FrameInput:
     """The part of a frame that bench.py leaves out of its timed window
     (bench.py:92-111): the dataset read (the synthetic sequence's host ray
     cast), the ground-truth pose appended to rt.gt_w2c_all, the upload to
-    the device, and the pose init (rt.init_pose)."""
-    color_np, depth_np, _, gt_pose = rt.dataset[time_idx]
-    gt_w2c = np.linalg.inv(gt_pose)
-    rt.gt_w2c_all.append(gt_w2c)
-    color, depth = frame_to_tensors(color_np, depth_np, rt.device)
-    rt.init_pose(time_idx)
+    the device, and the pose init (rt.init_pose): the span `prepare`."""
+    with spans.span("prepare", time_idx):
+        color_np, depth_np, _, gt_pose = rt.dataset[time_idx]
+        gt_w2c = np.linalg.inv(gt_pose)
+        rt.gt_w2c_all.append(gt_w2c)
+        color, depth = frame_to_tensors(color_np, depth_np, rt.device)
+        rt.init_pose(time_idx)
     return FrameInput(color_np, depth_np, gt_w2c, color, depth)
 
 
@@ -571,7 +589,9 @@ def run_frame(rt: SLAMRuntime, time_idx: int, frame: FrameInput | None = None,
     mark(stage), when given, is called as each stage ends: "compact",
     "track" and "densify" (frames after the first), "select_kf",
     "stage_kf" and "map" (bench.py's BENCH_STAGES split; the keyframe
-    append comes after "map").
+    append comes after "map"). Each stage is a span of its name
+    (utils/spans.py), the keyframe append the span "append_kf"; mark is
+    called as the stage's span closes.
 
     rgbd_slam's frame differs in three places: it adds a keyframe at
     num_frames - 2, adds keyframes only for a finite ground-truth pose, and
@@ -580,25 +600,34 @@ def run_frame(rt: SLAMRuntime, time_idx: int, frame: FrameInput | None = None,
         frame = prepare_frame(rt, time_idx)
     mark = mark or (lambda stage: None)
     color_np, depth_np, color, depth = frame.color_np, frame.depth_np, frame.color, frame.depth
-    rt.compact()
+    with spans.span("compact", time_idx):
+        rt.compact()
     mark("compact")
     if time_idx > 0:
-        if rt.config["tracking"].get("use_gt_poses", False):
-            rt.set_gt_pose(time_idx, frame.gt_w2c)
-        else:
-            rt.track_frame(time_idx, *rt.frame_at(rt.tracking_dataset, time_idx, color, depth))
+        with spans.span("track", time_idx):
+            if rt.config["tracking"].get("use_gt_poses", False):
+                rt.set_gt_pose(time_idx, frame.gt_w2c)
+            else:
+                rt.track_frame(time_idx,
+                               *rt.frame_at(rt.tracking_dataset, time_idx, color, depth))
         mark("track")
-        if rt.config["mapping"]["add_new_gaussians"]:
-            rt.densify_frame(time_idx, *rt.frame_at(rt.densify_dataset, time_idx, color, depth))
+        with spans.span("densify", time_idx):
+            if rt.config["mapping"]["add_new_gaussians"]:
+                rt.densify_frame(time_idx,
+                                 *rt.frame_at(rt.densify_dataset, time_idx, color, depth))
         mark("densify")
-    selected = rt.select_keyframes(time_idx, depth_np)
+    with spans.span("select_kf", time_idx):
+        selected = rt.select_keyframes(time_idx, depth_np)
     mark("select_kf")
-    rt._stage_keyframe(rt.kf_scratch_slot, color_np, depth_np)
+    with spans.span("stage_kf", time_idx):
+        rt._stage_keyframe(rt.kf_scratch_slot, color_np, depth_np)
     mark("stage_kf")
-    rt.map_frame(time_idx, selected)
+    with spans.span("map", time_idx):
+        rt.map_frame(time_idx, selected)
     mark("map")
     if time_idx == 0 or (time_idx + 1) % rt.config["keyframe_every"] == 0:
-        rt.add_keyframe(time_idx, color_np, depth_np)
+        with spans.span("append_kf", time_idx):
+            rt.add_keyframe(time_idx, color_np, depth_np)
 
 
 def _replay_iter_progress(hist, phase: str, frame: int) -> None:

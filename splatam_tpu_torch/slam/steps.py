@@ -6,7 +6,14 @@ get_loss :214-347, tracking :690-744, mapping :828-891, add_new_gaussians
 here each phase is a Python loop over iterations whose renders launch the
 CUDA kernels. Host syncs are kept to what the control flow needs: one per
 structure build (the exact pair count), the depth_loss_thres check, and
-densification's candidate count.
+densification's candidate count; besides, every blocking upload from host
+memory (a render's intrinsics, SSIM's window) waits for the card.
+
+Each iteration is a span `iter` (utils/spans.py) holding the spans
+`build` (a structure build, render/api.py), `render`, `loss`, `backward`
+and `adam`, and in mapping `draw` (the keyframe's conversion) and
+`prune`; densification's are `render`, `select` and `write`. Every point
+where the host waits for the card is a `waited` site.
 
 Every phase takes `bands` (parallel.spatial.make_bands; None = one image):
 its renders then run per band of rows and the loss on the gathered image,
@@ -31,6 +38,7 @@ from splatam_tpu_torch.render import api, pairspace
 from splatam_tpu_torch.render.binning import BinOptions
 from splatam_tpu_torch.render.fused_iso import pack_world8
 from splatam_tpu_torch.slam import optim
+from splatam_tpu_torch.utils import spans
 
 
 @dataclass(frozen=True)
@@ -122,50 +130,52 @@ def get_loss(gm: GaussianMap, q, t, color, depth_gt, cam: Camera, pcfg: PhaseCon
              means2d_dummy=None, bands: list | None = None,
              bin_opts: BinOptions = api.CLASSIC):
     """Reference get_loss on loss_render's image (with `bands`, the loss
-    below runs once, on the gathered image)."""
-    out = loss_render(gm, q, t, cam, tracking, mapping, pair_structure, means2d_dummy, bands,
-                      bin_opts)
-    depth = out.depth
-    silhouette = out.silhouette
-    uncertainty = (out.depth_sq - depth * depth).detach()
-    nan_mask = ~torch.isnan(depth) & ~torch.isnan(uncertainty)
-    valid = depth_gt > 0
-    if pcfg.ignore_outlier_depth_loss:
-        depth_error = torch.abs(depth_gt - depth).detach() * valid
-        thresh = 10.0 * _median_lower(depth_error)
-        if pcfg.outlier_floor > 0.0:
-            thresh = torch.clamp(thresh, min=pcfg.outlier_floor)
-        mask = (depth_error < thresh) & valid
-    else:
-        mask = valid
-    mask = mask & nan_mask
-    if tracking and pcfg.use_sil_for_loss:
-        mask = mask & (silhouette > pcfg.sil_thres)
-    if pcfg.depth_unc_thres > 0.0:
-        s = torch.clamp(silhouette, min=1e-6)
-        var_norm = (out.depth_sq / s - (depth / s) ** 2).detach()
-        mask = mask & (var_norm < pcfg.depth_unc_thres**2)
-    mask = mask.detach()
+    below runs once, on the gathered image): the spans `render` and `loss`."""
+    with spans.span("render"):
+        out = loss_render(gm, q, t, cam, tracking, mapping, pair_structure, means2d_dummy,
+                          bands, bin_opts)
+    with spans.span("loss"):
+        depth = out.depth
+        silhouette = out.silhouette
+        uncertainty = (out.depth_sq - depth * depth).detach()
+        nan_mask = ~torch.isnan(depth) & ~torch.isnan(uncertainty)
+        valid = depth_gt > 0
+        if pcfg.ignore_outlier_depth_loss:
+            depth_error = torch.abs(depth_gt - depth).detach() * valid
+            thresh = 10.0 * _median_lower(depth_error)
+            if pcfg.outlier_floor > 0.0:
+                thresh = torch.clamp(thresh, min=pcfg.outlier_floor)
+            mask = (depth_error < thresh) & valid
+        else:
+            mask = valid
+        mask = mask & nan_mask
+        if tracking and pcfg.use_sil_for_loss:
+            mask = mask & (silhouette > pcfg.sil_thres)
+        if pcfg.depth_unc_thres > 0.0:
+            s = torch.clamp(silhouette, min=1e-6)
+            var_norm = (out.depth_sq / s - (depth / s) ** 2).detach()
+            mask = mask & (var_norm < pcfg.depth_unc_thres**2)
+        mask = mask.detach()
 
-    if tracking:
-        depth_loss = torch.sum(torch.abs(depth_gt - depth) * mask)
-    else:
-        cnt = torch.clamp(mask.sum(), min=1)
-        depth_loss = torch.sum(torch.abs(depth_gt - depth) * mask) / cnt
+        if tracking:
+            depth_loss = torch.sum(torch.abs(depth_gt - depth) * mask)
+        else:
+            cnt = torch.clamp(mask.sum(), min=1)
+            depth_loss = torch.sum(torch.abs(depth_gt - depth) * mask) / cnt
 
-    if tracking and (pcfg.use_sil_for_loss or pcfg.ignore_outlier_depth_loss):
-        im_loss = torch.sum(torch.abs(color - out.im) * mask[None])
-    elif tracking:
-        im_loss = torch.sum(torch.abs(color - out.im))
-    else:
-        im_loss = 0.8 * torch.abs(out.im - color).mean() + 0.2 * (
-            1.0 - calc_ssim(out.im, color))
+        if tracking and (pcfg.use_sil_for_loss or pcfg.ignore_outlier_depth_loss):
+            im_loss = torch.sum(torch.abs(color - out.im) * mask[None])
+        elif tracking:
+            im_loss = torch.sum(torch.abs(color - out.im))
+        else:
+            im_loss = 0.8 * torch.abs(out.im - color).mean() + 0.2 * (
+                1.0 - calc_ssim(out.im, color))
 
-    w_depth = pcfg.w_depth * depth_loss
-    w_im = pcfg.w_im * im_loss
-    aux = LossAux(w_depth.detach(), w_im.detach(), silhouette.detach(), depth.detach(),
-                  out.radii)
-    return w_depth + w_im, aux
+        w_depth = pcfg.w_depth * depth_loss
+        w_im = pcfg.w_im * im_loss
+        aux = LossAux(w_depth.detach(), w_im.detach(), silhouette.detach(), depth.detach(),
+                      out.radii)
+        return w_depth + w_im, aux
 
 
 # ---------------------------------------------------------------------------
@@ -224,34 +234,40 @@ def tracking_phase(gm: GaussianMap, q0, t0, color, depth_gt, cam: Camera, num_it
                               bin_opts=bin_opts)
           if use_rebin else None)
     best_q, best_t = q0.detach().clone(), t0.detach().clone()
-    min_loss = torch.tensor(1e20, dtype=torch.float32, device=q0.device)
+    with spans.waited("track.min_loss"):
+        min_loss = torch.tensor(1e20, dtype=torch.float32, device=q0.device)
     hist = torch.zeros((2 * num_iters, 3), device=q0.device) if record_hist else None
     limit, it = num_iters, 0
     while it < limit:
-        if use_rebin and it > 0 and it % rebin_every == 0:
-            ps = loss_pair_structure(gm, qt[0], qt[1], cam, with_world16=True, bands=bands,
-                                     bin_opts=bin_opts)
-        q = qt[0].requires_grad_(True)
-        t = qt[1].requires_grad_(True)
-        loss, aux = get_loss(gm, q, t, color, depth_gt, cam, pcfg, True, False, ps,
-                             bands=bands, bin_opts=bin_opts)
-        grads = torch.autograd.grad(loss, (q, t))
-        decay = 1.0
-        if lr_decay_frac < 1.0:
-            decay = lr_decay_frac ** (min(it, num_iters - 1) / max(num_iters - 1, 1))
-        qt, st = optim.adam_step(st, (q.detach(), t.detach()), grads,
-                                 (lr_q * decay, lr_t * decay), eps=1e-8)
-        loss = loss.detach()
-        if hist is not None:
-            hist[it] = torch.stack([loss, aux.weighted_depth_loss, aux.weighted_im_loss])
-        better = loss < min_loss
-        best_q = torch.where(better, qt[0], best_q)
-        best_t = torch.where(better, qt[1], best_t)
-        min_loss = torch.minimum(loss, min_loss)
-        if use_depth_loss_thres and it + 1 == num_iters and limit == num_iters:
-            # Reference checks only here (scripts/splatam.py:727-738).
-            if not bool(aux.weighted_depth_loss < depth_loss_thres):
-                limit = 2 * num_iters
+        with spans.span("iter"):
+            if use_rebin and it > 0 and it % rebin_every == 0:
+                ps = loss_pair_structure(gm, qt[0], qt[1], cam, with_world16=True,
+                                         bands=bands, bin_opts=bin_opts)
+            q = qt[0].requires_grad_(True)
+            t = qt[1].requires_grad_(True)
+            loss, aux = get_loss(gm, q, t, color, depth_gt, cam, pcfg, True, False, ps,
+                                 bands=bands, bin_opts=bin_opts)
+            with spans.span("backward"):
+                grads = torch.autograd.grad(loss, (q, t))
+            decay = 1.0
+            if lr_decay_frac < 1.0:
+                decay = lr_decay_frac ** (min(it, num_iters - 1) / max(num_iters - 1, 1))
+            with spans.span("adam"):
+                qt, st = optim.adam_step(st, (q.detach(), t.detach()), grads,
+                                         (lr_q * decay, lr_t * decay), eps=1e-8)
+            loss = loss.detach()
+            if hist is not None:
+                hist[it] = torch.stack([loss, aux.weighted_depth_loss, aux.weighted_im_loss])
+            better = loss < min_loss
+            best_q = torch.where(better, qt[0], best_q)
+            best_t = torch.where(better, qt[1], best_t)
+            min_loss = torch.minimum(loss, min_loss)
+            if use_depth_loss_thres and it + 1 == num_iters and limit == num_iters:
+                # Reference checks only here (scripts/splatam.py:727-738).
+                with spans.waited("track.depth_thres"):
+                    below = bool(aux.weighted_depth_loss < depth_loss_thres)
+                if not below:
+                    limit = 2 * num_iters
         it += 1
     return best_q, best_t, it, min_loss, None if hist is None else hist[:it]
 
@@ -339,41 +355,47 @@ def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs,
         gsvars = (zeros, zeros, zeros)
     hist = torch.zeros((num_iters, 3), device=dev) if record_hist else None
     for i in range(num_iters):
-        it = start_iter + i
-        slot = int(iter_slots[i])
-        color = kf_colors_u8[slot].to(torch.float32).permute(2, 0, 1) / 255.0
-        depth_gt = kf_depths[slot]
-        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        gm_i = gm._replace(**p, active=active)
-        ps = None if structs is None else structs[int(iter_struct_idx[i])]
-        dummy = (torch.zeros((gm.capacity, 2), device=dev, requires_grad=True)
-                 if track_stats else None)
-        loss, aux = get_loss(gm_i, iter_qs[i], iter_ts[i], color, depth_gt, cam, pcfg,
-                             False, True, ps, means2d_dummy=dummy, bands=bands,
-                             bin_opts=bin_opts)
-        wrt = tuple(p.values()) + ((dummy,) if track_stats else ())
-        grads = torch.autograd.grad(loss, wrt)
-        if track_stats:
-            # 3DGS densification statistics (utils/slam_external.py:100-104).
-            grads, d_dummy = grads[:-1], grads[-1]
-            gsvars = accumulate_stats(gsvars, d_dummy, aux.radii)
-        if hist is not None:
-            hist[i] = torch.stack([loss.detach(), aux.weighted_depth_loss,
-                                   aux.weighted_im_loss])
-        if prune_cfg.enabled:
-            active = _prune_mask(params["logit_opacities"], params["log_scales"], active, it,
-                                 scene_radius, prune_cfg)
-            if (prune_cfg.reset_opacities and it > 0
-                    and it % prune_cfg.reset_opacities_every == 0
-                    and it <= prune_cfg.stop_after):
-                inv_sig = torch.log(torch.tensor(0.01 / 0.99))
-                params["logit_opacities"] = torch.full_like(params["logit_opacities"],
-                                                            float(inv_sig))
-                st = optim.AdamState(m=tuple(torch.zeros_like(x) for x in st.m),
-                                     v=tuple(torch.zeros_like(x) for x in st.v),
-                                     step=st.step)
-        new, st = optim.adam_step(st, tuple(params.values()), grads, plrs, eps=1e-15)
-        params = dict(zip(keys, new))
+        with spans.span("iter"):
+            it = start_iter + i
+            with spans.span("draw"):
+                slot = int(iter_slots[i])
+                color = kf_colors_u8[slot].to(torch.float32).permute(2, 0, 1) / 255.0
+                depth_gt = kf_depths[slot]
+            p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            gm_i = gm._replace(**p, active=active)
+            ps = None if structs is None else structs[int(iter_struct_idx[i])]
+            dummy = (torch.zeros((gm.capacity, 2), device=dev, requires_grad=True)
+                     if track_stats else None)
+            loss, aux = get_loss(gm_i, iter_qs[i], iter_ts[i], color, depth_gt, cam, pcfg,
+                                 False, True, ps, means2d_dummy=dummy, bands=bands,
+                                 bin_opts=bin_opts)
+            wrt = tuple(p.values()) + ((dummy,) if track_stats else ())
+            with spans.span("backward"):
+                grads = torch.autograd.grad(loss, wrt)
+            if track_stats:
+                # 3DGS densification statistics (utils/slam_external.py:100-104).
+                grads, d_dummy = grads[:-1], grads[-1]
+                gsvars = accumulate_stats(gsvars, d_dummy, aux.radii)
+            if hist is not None:
+                hist[i] = torch.stack([loss.detach(), aux.weighted_depth_loss,
+                                       aux.weighted_im_loss])
+            if prune_cfg.enabled:
+                with spans.span("prune"):
+                    active = _prune_mask(params["logit_opacities"], params["log_scales"],
+                                         active, it, scene_radius, prune_cfg)
+                    if (prune_cfg.reset_opacities and it > 0
+                            and it % prune_cfg.reset_opacities_every == 0
+                            and it <= prune_cfg.stop_after):
+                        inv_sig = torch.log(torch.tensor(0.01 / 0.99))
+                        params["logit_opacities"] = torch.full_like(
+                            params["logit_opacities"], float(inv_sig))
+                        st = optim.AdamState(m=tuple(torch.zeros_like(x) for x in st.m),
+                                             v=tuple(torch.zeros_like(x) for x in st.v),
+                                             step=st.step)
+            with spans.span("adam"):
+                new, st = optim.adam_step(st, tuple(params.values()), grads, plrs,
+                                          eps=1e-15)
+            params = dict(zip(keys, new))
     return gm._replace(**params, active=active), st, gsvars, hist
 
 
@@ -444,31 +466,41 @@ def densify_step(gm: GaussianMap, timestep, color, depth_gt, q, t, time_idx: int
     into the lowest free slots; with `bands`, its render runs per band.
 
     Returns (gm, timestep, n_added, n_dropped); with n_dropped > 0 nothing
-    is written and the caller grows the capacity and retries."""
-    out = densify_render(gm, q, t, cam, bands, bin_opts)
-    cand = torch.nonzero(densify_candidates(out, depth_gt, sil_thres).reshape(-1))[:, 0]
-    free = torch.nonzero(~gm.active)[:, 0]
+    is written and the caller grows the capacity and retries. Spans:
+    `render`, `select` (the candidates and the free slots) and `write`."""
+    with spans.span("render"):
+        out = densify_render(gm, q, t, cam, bands, bin_opts)
+    with spans.span("select"):
+        chosen = densify_candidates(out, depth_gt, sil_thres).reshape(-1)
+        with spans.waited("densify.candidates"):
+            cand = torch.nonzero(chosen)[:, 0]
+        with spans.waited("densify.free"):
+            free = torch.nonzero(~gm.active)[:, 0]
     n_cand, n_free = cand.shape[0], free.shape[0]
     if n_cand > n_free:
         return gm, timestep, 0, n_cand - n_free
 
-    w2c = torch.eye(4, dtype=torch.float32, device=q.device)
-    w2c[:3, :3] = build_rotation(normalize(q)[None])[0]
-    w2c[:3, 3] = t
-    pts, cols, mean_sq = backproject_pointcloud(
-        color, depth_gt, cam.fx, cam.fy, cam.cx, cam.cy, torch.linalg.inv(w2c))
-    dest = free[:n_cand]
-    means3d, rgb = gm.means3d.clone(), gm.rgb_colors.clone()
-    rots, logit = gm.unnorm_rotations.clone(), gm.logit_opacities.clone()
-    log_scales, active = gm.log_scales.clone(), gm.active.clone()
-    means3d[dest] = pts[cand]
-    rgb[dest] = cols[cand]
-    rots[dest] = torch.tensor([1.0, 0.0, 0.0, 0.0], device=q.device)
-    logit[dest] = 0.0
-    log_scales[dest] = 0.5 * torch.log(torch.clamp(mean_sq[cand], min=1e-12))[:, None]
-    active[dest] = True
-    timestep = timestep.clone()
-    timestep[dest] = float(time_idx)
+    with spans.span("write"):
+        w2c = torch.eye(4, dtype=torch.float32, device=q.device)
+        w2c[:3, :3] = build_rotation(normalize(q)[None])[0]
+        w2c[:3, 3] = t
+        with spans.waited("densify.inverse"):  # linalg.inv reads its error flag back
+            c2w = torch.linalg.inv(w2c)
+        pts, cols, mean_sq = backproject_pointcloud(
+            color, depth_gt, cam.fx, cam.fy, cam.cx, cam.cy, c2w)
+        dest = free[:n_cand]
+        means3d, rgb = gm.means3d.clone(), gm.rgb_colors.clone()
+        rots, logit = gm.unnorm_rotations.clone(), gm.logit_opacities.clone()
+        log_scales, active = gm.log_scales.clone(), gm.active.clone()
+        means3d[dest] = pts[cand]
+        rgb[dest] = cols[cand]
+        with spans.waited("densify.unit_quat"):
+            rots[dest] = torch.tensor([1.0, 0.0, 0.0, 0.0], device=q.device)
+        logit[dest] = 0.0
+        log_scales[dest] = 0.5 * torch.log(torch.clamp(mean_sq[cand], min=1e-12))[:, None]
+        active[dest] = True
+        timestep = timestep.clone()
+        timestep[dest] = float(time_idx)
     return GaussianMap(means3d, rgb, rots, logit, log_scales, active), timestep, n_cand, 0
 
 
