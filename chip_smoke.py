@@ -34,7 +34,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      Gaussian K3 reduces, the (pair, warp) steps K5 reduces with the
      shuffles they take, and for K1, K2 and K4 the (pair, warp) steps their
      walks need, those their cull keeps and those a walk with no cull
-     visits;
+     visits; then get_loss's loss kernel (csrc/loss.cu) on a render of
+     path 1's final map against its last frame, as a tracking and as a
+     mapping call: against its plain version (the loss within 1e-5, each
+     gradient plane within 1e-5 of its largest value), twice bit for bit,
+     timed beside its plain version and the PyTorch composition it
+     replaces (forward and backward), with the memory each holds between
+     them, its registers and its bound;
   6. one more frame of path 1 under torch.profiler (device activity only):
      its wall time, the device-busy time inside that same frame, and the
      kernels that take the device time;
@@ -177,7 +183,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      K1 and K4 bit for bit; (c) 3 frames of path 1's configuration with
      tpu.spatial_shards = 4 beside the same 3 frames without bands: ATE,
      PSNR and Gaussians of both, and each kernel launched 4 times as often
-     as without bands; (d) dryrun_multichip over 4 bands; (e)
+     as without bands (the loss kernel as often: it runs on the gathered
+     image); (d) dryrun_multichip over 4 bands; (e)
      profile_sharded at --shards 1 2 4 (320x240); (f) profile_map_ablate
      (950,272 Gaussians, 1200x680), probe_saturation --frames 3 and
      exp_gather's table gathers and its tracking-gather comparison on path
@@ -282,6 +289,11 @@ KERNELS = {
     "dma_b2": ("scripts/probe_dma.py:173", "splatam_tpu_torch/csrc/fused_probes.cu"),
     "dma_b4": ("scripts/probe_dma.py:173", "splatam_tpu_torch/csrc/fused_probes.cu"),
     "math_only": ("scripts/probe_dma.py:290", "splatam_tpu_torch/csrc/fused_probes.cu"),
+    # get_loss's loss and gradient, which the JAX package leaves to XLA
+    "loss_map": ("none (XLA fuses splatam_tpu/slam/steps.py get_loss)",
+                 "splatam_tpu_torch/csrc/loss.cu"),
+    "loss_track": ("none (XLA fuses splatam_tpu/slam/steps.py get_loss)",
+                   "splatam_tpu_torch/csrc/loss.cu"),
 }
 # K1 and K2 at every other channel count (1-10, as the TPU kernels take: the
 # SLAM loop's five are the rows above), K3 at every other width of the
@@ -343,6 +355,7 @@ KERNEL_INFO = {"composite_forward": ("composite_forward_info", 5),
                "fused_backward": ("fused_backward_info",),
                "segment_reduce": ("segment_reduce_info", 8),
                "segment_reduce11": ("segment_reduce_info", 11),
+               "loss_map": ("loss_info", 1), "loss_track": ("loss_info", 0),
                **{instance_name(kind, n): (f"{kind}_info", n)
                   for kind in ("composite_forward", "composite_backward") for n in CHANNELS
                   if n != 5},
@@ -358,8 +371,8 @@ EVAL = (("composite_forward",),
         ("composite_backward", "fused_forward", "fused_backward", "segment_reduce",
          "segment_reduce11", *PROBES))
 PATH_KERNELS = {
-    "path 1": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
-               ("composite_backward", "segment_reduce11", *PROBES)),
+    "path 1": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce",
+                "loss_track", "loss_map"), ("composite_backward", "segment_reduce11", *PROBES)),
     "path 2": GENERIC,
     "path 3": GENERIC,
     "path 4": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
@@ -1173,6 +1186,105 @@ def check_launches(name: str, launches: dict, label: str | None = None) -> None:
 
 
 QUALITY = ("psnr", "ms_ssim", "lpips_synthetic", "depth_l1", "depth_rmse", "ate_rmse")
+
+
+# replica_bench's (upstream configs/replica/splatam.py) tracking and mapping losses
+LOSS_PHASES = {"loss_track": (True, dict(use_sil_for_loss=True, sil_thres=0.99)),
+               "loss_map": (False, dict(use_sil_for_loss=False, sil_thres=0.5))}
+
+
+def loss_work(h: int, w: int, mapping: bool) -> tuple[int, int]:
+    """(bytes, operations) of the loss kernel at h x w: ten input planes
+    read once (image, colour, depth, depth^2, silhouette, depth_gt) and the
+    four gradient planes written once; in mapping, SSIM's blurs per pixel
+    and channel (five moments and three back-blurs, separable: 8 x 2 x 11
+    multiply-adds, 2 operations each)."""
+    return 14 * h * w * 4, (3 * h * w * 8 * 2 * 11 * 2 if mapping else 0)
+
+
+def check_loss_kernel(final_map, final_frame) -> tuple:
+    """Phase 5b: get_loss's loss kernel (csrc/loss.cu) on a render of path
+    1's final map at its last pose against that frame, as a tracking and as
+    a mapping call: against its plain version (the closed form in float32,
+    no TF32; the loss within 1e-5, each gradient plane within 1e-5 of its
+    own largest value, the mask count exact), twice bit for bit; times in
+    turns with its plain version (the kernel's row: its device time under
+    torch.profiler where verified), and beside the PyTorch composition it
+    replaces (forward and autograd backward to the image and depth), and
+    FusedLoss forward and backward; the memory each holds between forward
+    and backward; bounds. Returns (errs, times, bounds, library)."""
+    import torch
+
+    from splatam_tpu_torch.core import fused_loss
+    from splatam_tpu_torch.scripts.harness import device_busy
+    from splatam_tpu_torch.slam import steps
+
+    view, q, t, cam = final_map
+    color, depth_gt = final_frame
+    out = steps.densify_render(view, q, t, cam)
+    img = torch.stack([*out.im, out.depth, out.depth_sq, out.silhouette])
+    errs, times, library, work = {}, {}, {}, {}
+    label = f"loss, {WIDTH}x{HEIGHT}"
+    for name, (tracking, keys) in LOSS_PHASES.items():
+        pcfg = steps.PhaseConfig(use_l1=True, ignore_outlier_depth_loss=False, w_im=0.5,
+                                 w_depth=1.0, **keys)
+        r = fused_loss.route(pcfg, tracking)
+        args = (img[:3], img[3], img[4], img[5], color, depth_gt, r)
+        res, grad, gscale = fused_loss.loss_terms(*args)
+        with torch.backends.cudnn.flags(allow_tf32=False):
+            ref_res, ref_grad, ref_gscale = fused_loss.loss_terms_plain(*args)
+        loss_rel = abs(float(res[0]) - float(ref_res[0])) / max(abs(float(ref_res[0])), 1e-30)
+        err, rels = rel_err(grad, ref_grad)
+        again = fused_loss.loss_terms(*args)
+        same = all(torch.equal(a, b) for a, b in zip(again, (res, grad, gscale)))
+        ok = (loss_rel <= 1e-5 and max(rels) <= 1e-5 and float(res[3]) == float(ref_res[3])
+              and torch.equal(gscale, ref_gscale) and same)
+        print(f"[{label}] {name}: loss {float(res[0]):.6f} (plain {float(ref_res[0]):.6f}, "
+              f"rel {loss_rel:.1e}), mask {int(res[3])}, max_abs_err={err:.3e} "
+              f"worst_plane_rel={max(rels):.1e} tol=1e-05 repeat_equal={same} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"{name} disagrees with its plain version ({label})")
+        errs[name] = err
+
+        def composition(r=r):
+            x = img.detach().requires_grad_(True)
+            return fused_loss.loss_composition(x[:3], x[3], x[4], x[5], color, depth_gt, r)[0], x
+
+        def fused(r=r):
+            x = img.detach().requires_grad_(True)
+            return fused_loss.fused_loss(x[:3], x[3], x[4], x[5], color, depth_gt, r)[0], x
+
+        held = {}
+        for route, fn in (("composition", composition), ("fused", fused)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            loss, x = fn()
+            torch.cuda.synchronize()
+            held[route] = (torch.cuda.memory_allocated() - base) / 1e6
+            torch.autograd.grad(loss, x)
+            del loss, x
+
+        def both(fn):
+            return lambda: torch.autograd.grad(*fn())
+
+        times.update(time_turns([(name, lambda args=args: fused_loss.loss_terms(*args),
+                                  lambda args=args: fused_loss.loss_terms_plain(*args))]))
+        busy = device_busy(lambda args=args: fused_loss.loss_terms(*args), img.device, 20)
+        print(f"[{label}] {name}: device time {busy.ms:.4f} ms a call (profiler, both "
+              f"kernels, verified={busy.verified}): "
+              + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 20e3:.4f}"
+                          for e in busy.events), flush=True)
+        if busy.verified:  # the kernels' own time, without the host's launch gaps
+            times[name] = (busy.ms, times[name][1])
+        library[name] = min(event_ms(both(composition), 20, 3) for _ in range(2))
+        fused_ms = min(event_ms(both(fused), 20, 3) for _ in range(2))
+        print(f"[{label}] {name}: forward+backward, composition {library[name]:.3f} ms "
+              f"(holds {held['composition']:.2f} MB until its backward), FusedLoss "
+              f"{fused_ms:.3f} ms (holds {held['fused']:.2f} MB)", flush=True)
+        work[name] = loss_work(HEIGHT, WIDTH, not tracking)
+    bounds = report_bounds(work, times, label)
+    return errs, times, bounds, library
 
 
 def report_quality(label: str, metrics: dict, card: str) -> None:
@@ -2579,11 +2691,13 @@ def drive_bands(work: str, device, final_map, final_frame) -> dict:
         del rt
         torch.cuda.empty_cache()
     plain, banded = launches["path 15 unbanded"], launches["path 15 bands"]
-    off = {k: (plain[k], banded[k]) for k in plain if banded[k] != N_BANDS * plain[k]}
-    print(f"path 15 (c): launches with {N_BANDS} bands {N_BANDS}x those without: {not off}",
-          flush=True)
+    # the loss runs once an iteration, on the gathered image
+    times_of = {k: 1 if k in LOSS_PHASES else N_BANDS for k in plain}
+    off = {k: (plain[k], banded[k]) for k in plain if banded[k] != times_of[k] * plain[k]}
+    print(f"path 15 (c): launches with {N_BANDS} bands {N_BANDS}x those without (the loss's "
+          f"equal): {not off}", flush=True)
     if off:
-        fail(f"path 15 (c): launches not {N_BANDS}x the unbanded run's: {off}")
+        fail(f"path 15 (c): launches not {N_BANDS}x (the loss's: 1x) the unbanded run's: {off}")
 
     def counted(name, fn):
         t1 = time.time()
@@ -2981,6 +3095,9 @@ def main() -> None:
     # paths 11 and 15 render this map (path 1's final one) at this pose
     final_map = (view, q_l, t_l, rt.cam)
     final_frame = final_frame_of(rt, FRAMES - 1, device)
+    for table, loss_table in zip((errs, times, bounds, library),
+                                 check_loss_kernel(final_map, final_frame)):
+        table.update(loss_table)
     profile_frame(rt, FRAMES, "path 1", device)
     del rt, view
     torch.cuda.empty_cache()

@@ -35,6 +35,7 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-f
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 # name -> argument types (every function returns int: a cudaError_t)
 _SIGNATURES = {
@@ -44,12 +45,18 @@ _SIGNATURES = {
     "fused_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "fused_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "segment_reduce": [_I, _P, _P, _P, _P, _I, _P, _P],
+    # get_loss's loss and gradient planes (csrc/loss.cu): the route, the five
+    # render and frame planes with color's and depth_gt's strides, the
+    # outlier threshold, the size, the mask's switches and scalars, outputs
+    "loss_forward": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I,
+                     _F, _F, _F, _F, _P, _P, _I, _P, _P, _P],
     # what the compiler gave a kernel (registers, local bytes, blocks per SM)
     "composite_forward_info": [_I, _IP, _IP, _IP],
     "composite_backward_info": [_I, _IP, _IP, _IP],
     "fused_forward_info": [_IP, _IP, _IP],
     "fused_backward_info": [_IP, _IP, _IP],
     "segment_reduce_info": [_I, _IP, _IP, _IP],
+    "loss_info": [_I, _IP, _IP, _IP],
     # the fused forward's probe kernels (csrc/fused_probes.cu)
     "fused_forward2": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "fused_math_only": [_P, _P, _P, _I, _I, _I, _I, _P, _P],

@@ -10,6 +10,7 @@ from typing import NamedTuple
 
 import torch
 
+from splatam_tpu_torch.core import fused_loss
 from splatam_tpu_torch.render import composite, fused_iso, probes
 from splatam_tpu_torch.utils.device import require_device
 
@@ -29,7 +30,7 @@ WIDE = tuple(wide_launch_counts())
 # Every hand-written kernel of the port, by the name chip_smoke.py reports.
 KERNELS = ("composite_forward", "composite_backward", "fused_forward", "fused_backward",
            "segment_reduce", "segment_reduce11", "fwd2", "dma_only", "dma_b2", "dma_b4",
-           "math_only", *WIDE)
+           "math_only", "loss_track", "loss_map", *WIDE)
 SHORT = {"composite_forward": "K1", "composite_backward": "K2", "fused_forward": "K4",
          "fused_backward": "K5", "segment_reduce": "K3-8", "segment_reduce11": "K3-11",
          **{n: n.replace("composite_forward_", "K1-").replace("composite_backward_", "K2-")
@@ -45,7 +46,8 @@ def launch_counts() -> dict:
             "segment_reduce": by_width[8], "segment_reduce11": by_width[11],
             "fwd2": probes.fwd2.launches, "dma_only": by_block[1], "dma_b2": by_block[2],
             "dma_b4": by_block[4], "math_only": probes.math_only.launches,
-            **wide_launch_counts()}
+            "loss_track": fused_loss.loss_terms.launches["track"],
+            "loss_map": fused_loss.loss_terms.launches["map"], **wide_launch_counts()}
 
 
 def reset_launch_counts() -> None:
@@ -56,6 +58,7 @@ def reset_launch_counts() -> None:
         fn.launches = dict.fromkeys(composite.CHANNELS, 0)
     composite.segment_reduce.launches = dict.fromkeys(composite.SEGMENT_WIDTHS, 0)
     probes.dma_walk.launches = dict.fromkeys(probes.DMA_BLOCKS, 0)
+    fused_loss.loss_terms.launches = {"track": 0, "map": 0}
 
 
 def parser(doc: str) -> argparse.ArgumentParser:
@@ -113,7 +116,8 @@ def _sync(device: torch.device) -> None:
 KERNEL_SYMBOLS = ("composite_forward_kernel", "composite_backward_kernel",
                   "fused_forward_kernel", "fused_backward_kernel", "segment_reduce_kernel",
                   "segment_reduce_half_kernel", "fused_forward2_kernel", "dma_walk_kernel",
-                  "fused_math_only_kernel")
+                  "fused_math_only_kernel", "loss_track_tile_kernel", "loss_map_tile_kernel",
+                  "loss_reduce_kernel")
 
 
 def port_launches_seen(events) -> int:

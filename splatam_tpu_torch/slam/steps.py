@@ -7,7 +7,7 @@ here each phase is a Python loop over iterations whose renders launch the
 CUDA kernels. Host syncs are kept to what the control flow needs: one per
 structure build (the exact pair count), the depth_loss_thres check, and
 densification's candidate count; besides, every blocking upload from host
-memory (a render's intrinsics, SSIM's window) waits for the card.
+memory (a render's intrinsics) waits for the card.
 
 Each iteration is a span `iter` (utils/spans.py) holding the spans
 `build` (a structure build, render/api.py), `render`, `loss`, `backward`
@@ -29,9 +29,9 @@ from typing import NamedTuple
 
 import torch
 
+from splatam_tpu_torch.core import fused_loss
 from splatam_tpu_torch.core.camera import Camera
 from splatam_tpu_torch.core.gaussians import GaussianMap, grow_with_timestep
-from splatam_tpu_torch.core.losses import calc_ssim
 from splatam_tpu_torch.core.transforms import build_rotation, normalize, quat_mult
 from splatam_tpu_torch.parallel import spatial
 from splatam_tpu_torch.render import api, pairspace
@@ -130,52 +130,32 @@ def get_loss(gm: GaussianMap, q, t, color, depth_gt, cam: Camera, pcfg: PhaseCon
              means2d_dummy=None, bands: list | None = None,
              bin_opts: BinOptions = api.CLASSIC):
     """Reference get_loss on loss_render's image (with `bands`, the loss
-    below runs once, on the gathered image): the spans `render` and `loss`."""
+    below runs once, on the gathered image): the spans `render` and `loss`.
+    On the card the loss is one kernel with its gradient in closed form
+    (core/fused_loss.py fused_loss); on the CPU, PyTorch ops through
+    autograd (fused_loss.loss_composition)."""
     with spans.span("render"):
         out = loss_render(gm, q, t, cam, tracking, mapping, pair_structure, means2d_dummy,
                           bands, bin_opts)
     with spans.span("loss"):
-        depth = out.depth
-        silhouette = out.silhouette
-        uncertainty = (out.depth_sq - depth * depth).detach()
-        nan_mask = ~torch.isnan(depth) & ~torch.isnan(uncertainty)
-        valid = depth_gt > 0
-        if pcfg.ignore_outlier_depth_loss:
-            depth_error = torch.abs(depth_gt - depth).detach() * valid
-            thresh = 10.0 * _median_lower(depth_error)
-            if pcfg.outlier_floor > 0.0:
-                thresh = torch.clamp(thresh, min=pcfg.outlier_floor)
-            mask = (depth_error < thresh) & valid
-        else:
-            mask = valid
-        mask = mask & nan_mask
-        if tracking and pcfg.use_sil_for_loss:
-            mask = mask & (silhouette > pcfg.sil_thres)
-        if pcfg.depth_unc_thres > 0.0:
-            s = torch.clamp(silhouette, min=1e-6)
-            var_norm = (out.depth_sq / s - (depth / s) ** 2).detach()
-            mask = mask & (var_norm < pcfg.depth_unc_thres**2)
-        mask = mask.detach()
+        thresh = (_outlier_thresh(out.depth.detach(), depth_gt, pcfg)
+                  if pcfg.ignore_outlier_depth_loss else None)
+        loss_fn = fused_loss.fused_loss if out.depth.is_cuda else fused_loss.loss_composition
+        loss, w_depth, w_im = loss_fn(out.im, out.depth, out.depth_sq, out.silhouette, color,
+                                      depth_gt, fused_loss.route(pcfg, tracking), thresh)
+        aux = LossAux(w_depth.detach(), w_im.detach(), out.silhouette.detach(),
+                      out.depth.detach(), out.radii)
+        return loss, aux
 
-        if tracking:
-            depth_loss = torch.sum(torch.abs(depth_gt - depth) * mask)
-        else:
-            cnt = torch.clamp(mask.sum(), min=1)
-            depth_loss = torch.sum(torch.abs(depth_gt - depth) * mask) / cnt
 
-        if tracking and (pcfg.use_sil_for_loss or pcfg.ignore_outlier_depth_loss):
-            im_loss = torch.sum(torch.abs(color - out.im) * mask[None])
-        elif tracking:
-            im_loss = torch.sum(torch.abs(color - out.im))
-        else:
-            im_loss = 0.8 * torch.abs(out.im - color).mean() + 0.2 * (
-                1.0 - calc_ssim(out.im, color))
-
-        w_depth = pcfg.w_depth * depth_loss
-        w_im = pcfg.w_im * im_loss
-        aux = LossAux(w_depth.detach(), w_im.detach(), silhouette.detach(), depth.detach(),
-                      out.radii)
-        return w_depth + w_im, aux
+def _outlier_thresh(depth, depth_gt, pcfg: PhaseConfig) -> torch.Tensor:
+    """ignore_outlier_depth_loss's threshold: 10 x the lower median of the
+    depth error |depth_gt - depth| (0 where depth_gt is not), at least
+    pcfg.outlier_floor where that is set."""
+    thresh = 10.0 * _median_lower(torch.abs(depth_gt - depth) * (depth_gt > 0))
+    if pcfg.outlier_floor > 0.0:
+        thresh = torch.clamp(thresh, min=pcfg.outlier_floor)
+    return thresh
 
 
 # ---------------------------------------------------------------------------

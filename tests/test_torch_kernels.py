@@ -29,17 +29,23 @@ version bit for bit on ragged tiles several batches deep and on world
 rows whose projection takes every branch (behind the near plane, det == 0,
 clamped, scales from 0 to 1e12, centres far off the screen), and K4 and K5
 on per-Gaussian rows read through pair_gauss must equal their per-pair mode
-bit for bit.
+bit for bit. The loss kernel (csrc/loss.cu) is held to its plain version,
+the closed form in float32, on test_torch_loss.py's frames: the loss within
+1e-5 and each gradient plane within 1e-5 of its largest value (both blur
+in float32, the mask is the same arithmetic), and equal bit for bit across
+two launches (fixed-order sums).
 """
 import numpy as np
 import pytest
 import torch
 
+from splatam_tpu_torch.core import fused_loss
 from splatam_tpu_torch.core.camera import Camera
 from splatam_tpu_torch.core.gaussians import GaussianMap
 from splatam_tpu_torch.render import api, binning, composite, fused_iso, probes
 from splatam_tpu_torch.scripts import scene
 from splatam_tpu_torch.slam import steps
+from test_torch_loss import _frame as loss_frame, _pcfg as loss_pcfg
 from test_torch_cull import (FAMILIES, H as ROWS_H, W as ROWS_W, WORLD_FINITE, _family,
                              _world_family)
 
@@ -315,6 +321,119 @@ def test_wrappers_reject_bad_arguments(cuda):
                                      CAM.height, None, None)
     with pytest.raises(ValueError, match="columns"):
         composite.segment_reduce(torch.zeros((4, 17), device=cuda), ts[:4], ts[:1], ts[:1])
+
+
+def _loss_inputs(size, option, tracking, device, seed=0):
+    """test_torch_loss's frame in float32 on `device`, its route and its
+    outlier threshold."""
+    img, color, depth_gt = loss_frame(*size, seed=seed, dtype=torch.float32)
+    img, color, depth_gt = img.to(device), color.to(device), depth_gt.to(device)
+    pcfg = loss_pcfg(tracking, option)
+    thresh = None
+    if pcfg.ignore_outlier_depth_loss:
+        thresh = steps._outlier_thresh(img[3], depth_gt, pcfg)
+    args = (img[:3], img[3], img[4], img[5], color, depth_gt,
+            fused_loss.route(pcfg, tracking), thresh)
+    return args
+
+
+@pytest.mark.parametrize("size", [(680, 1200), (480, 640), (37, 53)],
+                         ids=lambda s: f"{s[1]}x{s[0]}")
+@pytest.mark.parametrize("option", ["replica_bench", "outlier", "depth_unc"])
+@pytest.mark.parametrize("tracking", [True, False], ids=["tracking", "mapping"])
+def test_loss_kernel_matches_plain(cuda, monkeypatch, tracking, option, size):
+    """The loss kernel against its plain version on the same float32 planes
+    (the plain version's blurs in full float32: no TF32): loss, weighted
+    terms and mask count within 1e-5 relative, each gradient plane within
+    1e-5 of its own largest |value|, and its scales exactly (the mask is
+    the same float32 arithmetic in both, so no pixel flips). The frame's
+    colour is also read at the strides of an HWC image, as the keyframes'
+    is."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    args = _loss_inputs(size, option, tracking, cuda, seed=sum(size))
+    res, grad, gscale = fused_loss.loss_terms(*args)
+    ref_res, ref_grad, ref_gscale = fused_loss.loss_terms_plain(*args)
+    assert float(res[3]) == float(ref_res[3])
+    for got, ref in zip(res[:3].cpu(), ref_res[:3].cpu()):
+        assert abs(float(got) - float(ref)) <= 1e-5 * abs(float(ref))
+    assert _rel(grad, ref_grad) <= 1e-5
+    assert torch.equal(gscale, ref_gscale)
+    hwc = args[4].permute(1, 2, 0).contiguous().permute(2, 0, 1)
+    res2, grad2, _ = fused_loss.loss_terms(*args[:4], hwc, *args[5:])
+    assert torch.equal(res2, res) and torch.equal(grad2, grad)
+
+
+@pytest.mark.parametrize("tracking", [True, False], ids=["tracking", "mapping"])
+def test_loss_kernel_is_deterministic(cuda, tracking):
+    """Fixed-order sums, no float atomics: two launches at 1200x680 give the
+    same loss and gradient planes bit for bit."""
+    args = _loss_inputs((680, 1200), "replica_bench", tracking, cuda, seed=9)
+    first = fused_loss.loss_terms(*args)
+    second = fused_loss.loss_terms(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_get_loss_launches_the_loss_kernel(cuda):
+    """get_loss on the card runs the loss as the kernel's two launches (the
+    tiles and the reduction) in tracking and in mapping, and never on the
+    CPU."""
+    color = torch.rand((3, CAM.height, CAM.width), generator=torch.Generator().manual_seed(3))
+    depth = 1.0 + 3.0 * torch.rand((CAM.height, CAM.width),
+                                   generator=torch.Generator().manual_seed(4))
+    pcfg = steps.PhaseConfig(True, 0.5, True, False, 0.5, 1.0)
+    for dev, per_call in (("cpu", 0), (cuda, 2)):
+        gm = _map(dev, seed=5)
+        q, t = _pose(dev)
+        ps = steps.loss_pair_structure(gm, q, t, CAM, with_world16=True)
+        before = dict(fused_loss.loss_terms.launches)
+        steps.get_loss(gm, q, t, color.to(dev), depth.to(dev), CAM, pcfg, True, False, ps)
+        steps.get_loss(gm, q, t, color.to(dev), depth.to(dev), CAM, pcfg, False, True,
+                       ps._replace(world8=None))
+        after = fused_loss.loss_terms.launches
+        assert {k: after[k] - before[k] for k in after} == {"track": per_call, "map": per_call}
+
+
+def test_mapping_get_loss_keeps_at_most_the_gradient_planes(cuda):
+    """At 1200x680 a mapping get_loss (fused render) holds at most 16 MB more
+    between its forward and autograd.grad than its render alone: the four
+    gradient planes (13.06 MB) and the partials, not SSIM's intermediates."""
+    cam = Camera(height=680, width=1200, fx=600.0, fy=600.0, cx=599.5, cy=339.5)
+    gm = _map(cuda, n=20000, seed=6)
+    q, t = _pose(cuda)
+    ps = steps.loss_pair_structure(gm, q, t, cam)
+    color = torch.rand((3, cam.height, cam.width), device=cuda)
+    depth = 1.0 + 3.0 * torch.rand((cam.height, cam.width), device=cuda)
+    pcfg = steps.PhaseConfig(False, 0.5, True, False, 0.5, 1.0)
+    params = tuple(x.clone().requires_grad_(True) for x in (
+        gm.means3d, gm.rgb_colors, gm.logit_opacities, gm.log_scales))
+    gm2 = gm._replace(means3d=params[0], rgb_colors=params[1], logit_opacities=params[2],
+                      log_scales=params[3])
+
+    def held(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        kept = fn()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated() - base, kept
+
+    render, out = held(lambda: steps.loss_render(gm2, q, t, cam, False, True, ps))
+    del out
+    whole, (loss, _) = held(lambda: steps.get_loss(gm2, q, t, color, depth, cam, pcfg, False,
+                                                  True, ps))
+    assert whole - render <= 16e6, (whole, render)
+    grads = torch.autograd.grad(loss, params)
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+def test_loss_wrapper_rejects_bad_arguments(cuda):
+    args = list(_loss_inputs((37, 53), "replica_bench", False, cuda))
+    with pytest.raises(ValueError, match="im"):
+        fused_loss.loss_terms(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="color"):
+        fused_loss.loss_terms(*args[:4], args[4][:, :-1], *args[5:])
+    with pytest.raises(ValueError, match="depth_gt"):
+        fused_loss.loss_terms(*args[:5], args[5].cpu(), *args[6:])
 
 
 @pytest.mark.parametrize("logit", [-2.0, 1.0])
