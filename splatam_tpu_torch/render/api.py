@@ -158,11 +158,12 @@ def _render(cam: Camera, means3d, colors, unnorm_rotations, logit_opacities, log
     """The backend's own rows, radii and pair count. The kernels' rows are
     [colors..., (z, z^2,) sil] (the silhouette from the transmittance), the
     references' [colors..., (z, 1, z^2)] (the silhouette a composited
-    constant 1)."""
+    constant 1). The projection is the span `project`, the binning `build`."""
     if backend not in BACKENDS:
         raise ValueError(f"backend: one of {BACKENDS}, got {backend!r}")
-    proj, aux = project_gaussians(cam, means3d, unnorm_rotations, logit_opacities, log_scales,
-                                  active, intrinsics_override, lim_wh)
+    with spans.span("project"):
+        proj, aux = project_gaussians(cam, means3d, unnorm_rotations, logit_opacities,
+                                      log_scales, active, intrinsics_override, lim_wh)
     opacity = proj.opacity
     if pair_structure is not None:
         opacity = torch.where(active, opacity, 0.0)

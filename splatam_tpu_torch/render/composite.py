@@ -55,16 +55,16 @@ def assemble_image(tiles: torch.Tensor, width: int, height: int) -> torch.Tensor
     return img.reshape(c, gy * TILE, gx * TILE)[:, :height, :width]
 
 
-def _tile_frame(tile_start: torch.Tensor, width: int):
+def _tile_frame(tile_start: torch.Tensor, width: int, dtype=torch.float32):
     """Per-tile origin [T, 1] and per-pixel local coordinates [1, 256]."""
     gx, _ = grid_shape(width, 1)
     device = tile_start.device
     t = torch.arange(tile_start.shape[0] - 1, device=device)
-    ox = ((t % gx) * TILE).to(torch.float32)[:, None]
-    oy = ((t // gx) * TILE).to(torch.float32)[:, None]
+    ox = ((t % gx) * TILE).to(dtype)[:, None]
+    oy = ((t // gx) * TILE).to(dtype)[:, None]
     p = torch.arange(PIX, device=device)
-    lx = (p % TILE).to(torch.float32)[None]
-    ly = (p // TILE).to(torch.float32)[None]
+    lx = (p % TILE).to(dtype)[None]
+    ly = (p // TILE).to(dtype)[None]
     return ox, oy, lx, ly
 
 
@@ -168,24 +168,27 @@ def cull_visit(box: torch.Tensor, warp_w: int = WARP_W) -> torch.Tensor:
 
 
 def composite_pairs_plain(xy, conic, opacity, chans, tile_start, width: int,
-                          height: int, cull: int | None = None) -> torch.Tensor:
+                          height: int, cull: int | None = None,
+                          t_out: torch.Tensor | None = None) -> torch.Tensor:
     """Composite per-pair attributes (pairs sorted by tile, then depth):
     xy [P, 2], conic [P, 3], opacity [P], chans [P, ch] -> [ch + 2, H, W].
 
     Walks every tile's list in lockstep, one pair index per step. With
     `cull` (a warp width, 16 or 8) a pixel skips every pair its warp does
-    not visit under the kernels' cull, which must change nothing."""
+    not visit under the kernels' cull, which must change nothing. The walk
+    runs in the rows' dtype: float32 as the kernels, float64 for a truth.
+    t_out [H, W], where given, receives T_final itself."""
     ch = chans.shape[1]
     n_tiles = tile_start.shape[0] - 1
-    ox, oy, lx, ly = _tile_frame(tile_start, width)
+    ox, oy, lx, ly = _tile_frame(tile_start, width, xy.dtype)
     starts = tile_start[:-1].long()
     lens = (tile_start[1:] - tile_start[:-1]).long()
     kmax = int(lens.max()) if n_tiles else 0
-    f32 = dict(dtype=torch.float32, device=xy.device)
-    t_cur = torch.ones((n_tiles, PIX), **f32)
+    fp = dict(dtype=xy.dtype, device=xy.device)
+    t_cur = torch.ones((n_tiles, PIX), **fp)
     done = torch.zeros((n_tiles, PIX), dtype=torch.bool, device=xy.device)
-    acc = torch.zeros((ch, n_tiles, PIX), **f32)
-    ncon = torch.zeros((n_tiles, PIX), **f32)
+    acc = torch.zeros((ch, n_tiles, PIX), **fp)
+    ncon = torch.zeros((n_tiles, PIX), **fp)
     p_last = max(xy.shape[0] - 1, 0)
     box = None if cull is None else cull_rows_plain(xy, conic, opacity, tile_start, width)
     for k in range(kmax):
@@ -203,13 +206,16 @@ def composite_pairs_plain(xy, conic, opacity, chans, tile_start, width: int,
         t_cur = torch.where(apply, test_t, t_cur)
         ncon = torch.where(apply, float(k + 1), ncon)
         done = done | term
+    if t_out is not None:
+        t_out.copy_(assemble_image(t_cur[None], width, height)[0])
     out = torch.cat([acc, (1.0 - t_cur)[None], ncon[None]])
     return assemble_image(out, width, height).contiguous()
 
 
 def composite_pairs_backward_plain(xy, conic, opacity, chans, tile_start, width: int,
                                    height: int, state, g,
-                                   cull: int | None = None) -> torch.Tensor:
+                                   cull: int | None = None,
+                                   t_final: torch.Tensor | None = None) -> torch.Tensor:
     """Per-pair screen-space gradients of composite_pairs_plain, by the
     reverse walk renderCUDA's backward runs (each pixel from its n_contrib
     back to the front).
@@ -218,24 +224,25 @@ def composite_pairs_backward_plain(xy, conic, opacity, chans, tile_start, width:
     read); g: cotangents [ch + 1, H, W] of the channels and the silhouette.
     Returns [P, 6 + ch]: d x, d y, d conic a, b, c, d opacity, d channels.
     Pairs past every pixel's n_contrib get zero. `cull` as in
-    composite_pairs_plain."""
+    composite_pairs_plain. t_final [H, W]: T_final itself where the caller
+    kept it (composite_pairs_plain's t_out); else 1 - the silhouette row."""
     ch = chans.shape[1]
     n_pairs = xy.shape[0]
     n_tiles = tile_start.shape[0] - 1
-    ox, oy, lx, ly = _tile_frame(tile_start, width)
+    ox, oy, lx, ly = _tile_frame(tile_start, width, xy.dtype)
     starts = tile_start[:-1].long()
     lens = (tile_start[1:] - tile_start[:-1]).long()
     st = to_tiles(state)
-    t_cur = 1.0 - st[ch]
+    t_cur = 1.0 - st[ch] if t_final is None else to_tiles(t_final[None])[0]
     ncon = st[ch + 1]
     gt = to_tiles(g)  # [ch + 1, T, PIX]; the silhouette is a constant-1 channel
     kmax = int(ncon.max()) if n_tiles else 0
-    f32 = dict(dtype=torch.float32, device=xy.device)
-    accum = torch.zeros((ch + 1, n_tiles, PIX), **f32)
-    last_c = torch.zeros((ch + 1, n_tiles, PIX), **f32)
-    last_alpha = torch.zeros((n_tiles, PIX), **f32)
-    out = torch.zeros((n_pairs, 6 + ch), **f32)
-    ones = torch.ones((1, n_tiles), **f32)
+    fp = dict(dtype=xy.dtype, device=xy.device)
+    accum = torch.zeros((ch + 1, n_tiles, PIX), **fp)
+    last_c = torch.zeros((ch + 1, n_tiles, PIX), **fp)
+    last_alpha = torch.zeros((n_tiles, PIX), **fp)
+    out = torch.zeros((n_pairs, 6 + ch), **fp)
+    ones = torch.ones((1, n_tiles), **fp)
     p_last = max(n_pairs - 1, 0)
     box = None if cull is None else cull_rows_plain(xy, conic, opacity, tile_start, width)
     for k in range(kmax - 1, -1, -1):
@@ -282,14 +289,14 @@ def _rows(attrs, pair_gauss):
 
 
 def composite_forward_plain(attrs, pair_gauss, tile_start, width: int, height: int,
-                            cull: int | None = None):
+                            cull: int | None = None, t_out: torch.Tensor | None = None):
     """attrs [N, 6 + ch] per-Gaussian rows (x, y, conic a, b, c, opacity,
     channels) composited through the sorted pairs pair_gauss [P]; with
-    pair_gauss None, attrs holds one row per sorted pair. `cull` as in
-    composite_pairs_plain."""
+    pair_gauss None, attrs holds one row per sorted pair. `cull` and t_out
+    as in composite_pairs_plain."""
     a = _rows(attrs, pair_gauss)
     return composite_pairs_plain(a[:, 0:2], a[:, 2:5], a[:, 5], a[:, 6:], tile_start,
-                                 width, height, cull)
+                                 width, height, cull, t_out)
 
 
 def check_channels(ch: int, name: str = "channels") -> None:
@@ -345,12 +352,13 @@ composite_forward.launches = dict.fromkeys(CHANNELS, 0)
 
 
 def composite_backward_plain(attrs, pair_gauss, tile_start, width: int, height: int,
-                             state, g, cull: int | None = None):
+                             state, g, cull: int | None = None,
+                             t_final: torch.Tensor | None = None):
     """Per-pair screen-space gradients [P, 6 + ch] of composite_forward_plain
     (composite_pairs_backward_plain on the gathered rows)."""
     a = _rows(attrs, pair_gauss)
     return composite_pairs_backward_plain(a[:, 0:2], a[:, 2:5], a[:, 5], a[:, 6:], tile_start,
-                                          width, height, state, g, cull)
+                                          width, height, state, g, cull, t_final)
 
 
 def composite_backward(attrs, pair_gauss, tile_start, width: int, height: int, state, g):

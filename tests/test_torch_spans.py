@@ -205,3 +205,50 @@ def test_frames_are_bit_identical_with_the_recorder_on_and_off(tmp_path, rebin_e
             assert {"track", "densify", "readback", "select", "write"} <= names
             assert records.syncs["bins.total"] == on_totals[i]["builds"]
         assert abs(_self_ns(records) - _top_ns(records)) <= 0.01 * _top_ns(records)
+
+
+def _ancestors(records, k: int) -> list:
+    out, p = [], records.spans[k].parent
+    while p >= 0:
+        out.append(records.spans[p].name)
+        p = records.spans[p].parent
+    return out
+
+
+def test_the_generic_route_records_project_under_render(tmp_path):
+    """rebin_every 1: every render is the generic one, which projects in
+    PyTorch (the span `project`, inside `render`) and then bins (`build`)."""
+    _, totals, _, records = _run(tmp_path, 1, True)
+    for i, rec in enumerate(records):
+        project = [k for k, s in enumerate(rec.spans) if s.name == "project"]
+        assert len(project) == totals[i]["builds"] > 0
+        for k in project:
+            assert rec.spans[rec.spans[k].parent].name == "render"
+
+
+def test_project_is_the_shared_no_op_when_off(tmp_path, monkeypatch):
+    seen = []
+    span = spans.span
+
+    def spy(name, frame=None):
+        obj = span(name, frame)
+        seen.append((name, obj))
+        return obj
+
+    monkeypatch.setattr(spans, "span", spy)
+    _run(tmp_path, 1, False)
+    project = [obj for name, obj in seen if name == "project"]
+    assert project and all(obj is spans.OFF for obj in project)
+
+
+def test_the_fused_route_records_no_project(tmp_path):
+    """rebin_every 8: tracking and mapping render through the fused kernels,
+    which project inside the kernel; only densification's generic render
+    records `project`."""
+    _, _, _, records = _run(tmp_path, 8, True)
+    for rec in records:
+        for k, s in enumerate(rec.spans):
+            if s.name == "project":
+                path = _ancestors(rec, k)
+                assert "densify" in path and "track" not in path and "map" not in path
+    assert any(s.name == "project" for rec in records[1:] for s in rec.spans)
