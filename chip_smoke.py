@@ -294,6 +294,12 @@ KERNELS = {
                  "splatam_tpu_torch/csrc/loss.cu"),
     "loss_track": ("none (XLA fuses splatam_tpu/slam/steps.py get_loss)",
                    "splatam_tpu_torch/csrc/loss.cu"),
+    # the generic render's projection and its gradient, which the JAX
+    # package leaves to XLA and jax.vjp
+    "project_forward": ("none (XLA fuses splatam_tpu/render/projection.py project)",
+                        "splatam_tpu_torch/csrc/projection.cu"),
+    "project_backward": ("none (jax.vjp of splatam_tpu/render/projection.py project)",
+                         "splatam_tpu_torch/csrc/projection.cu"),
 }
 # K1 and K2 at every other channel count (1-10, as the TPU kernels take: the
 # SLAM loop's five are the rows above), K3 at every other width of the
@@ -356,6 +362,7 @@ KERNEL_INFO = {"composite_forward": ("composite_forward_info", 5),
                "segment_reduce": ("segment_reduce_info", 8),
                "segment_reduce11": ("segment_reduce_info", 11),
                "loss_map": ("loss_info", 1), "loss_track": ("loss_info", 0),
+               "project_forward": ("project_info", 0), "project_backward": ("project_info", 1),
                **{instance_name(kind, n): (f"{kind}_info", n)
                   for kind in ("composite_forward", "composite_backward") for n in CHANNELS
                   if n != 5},
@@ -364,15 +371,20 @@ KERNEL_INFO = {"composite_forward": ("composite_forward_info", 5),
 # The SLAM loop's six kernels (check_trained_map's names for path 10's map).
 LOOP_KERNELS = ("composite_forward", "composite_backward", "fused_forward", "fused_backward",
                 "segment_reduce", "segment_reduce11")
-# Per path: the kernels it must launch, and those it must not.
-GENERIC = (("composite_forward", "composite_backward", "segment_reduce11"),
+# Per path: the kernels it must launch, and those it must not. Every render
+# and structure build projects through project_forward; project_backward
+# runs wherever a generic render takes a gradient (K2's paths), and not on
+# the fused paths checked for it (path 1, the probes).
+GENERIC = (("composite_forward", "composite_backward", "segment_reduce11", "project_forward",
+            "project_backward"),
            ("fused_forward", "fused_backward", "segment_reduce", *PROBES))
 EVAL = (("composite_forward",),
         ("composite_backward", "fused_forward", "fused_backward", "segment_reduce",
          "segment_reduce11", *PROBES))
 PATH_KERNELS = {
     "path 1": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce",
-                "loss_track", "loss_map"), ("composite_backward", "segment_reduce11", *PROBES)),
+                "loss_track", "loss_map", "project_forward"),
+               ("composite_backward", "segment_reduce11", "project_backward", *PROBES)),
     "path 2": GENERIC,
     "path 3": GENERIC,
     "path 4": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
@@ -393,10 +405,11 @@ PATH_KERNELS = {
     "path 8": GENERIC,
     "path 9": GENERIC,
     "path 10": (("composite_forward", "composite_backward", "segment_reduce11", "fused_forward",
-                 "fused_backward"), ("segment_reduce", *PROBES)),
+                 "fused_backward", "project_forward", "project_backward"),
+                ("segment_reduce", *PROBES)),
     "probes": (("fused_forward", *PROBES),
                ("composite_forward", "composite_backward", "fused_backward", "segment_reduce",
-                "segment_reduce11")),
+                "segment_reduce11", "project_forward", "project_backward")),
     # the viewers render through K1 alone (five channels: r, g, b, z, z^2)
     "path 12 final_recon": EVAL,
     "path 12 online_recon": EVAL,
@@ -410,7 +423,8 @@ PATH_KERNELS = {
     "path 15 bands": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
                       ("composite_backward", "segment_reduce11", *PROBES)),
     "path 15 dryrun": (("composite_forward", "composite_backward", "segment_reduce11",
-                        "fused_forward", "fused_backward"), ("segment_reduce", *PROBES)),
+                        "fused_forward", "fused_backward", "project_forward", "project_backward"),
+                       ("segment_reduce", *PROBES)),
     "path 15 profile_sharded": (("fused_forward", "fused_backward", "segment_reduce"),
                                 ("composite_forward", "composite_backward", "segment_reduce11",
                                  *PROBES)),
@@ -431,7 +445,8 @@ PATH_KERNELS = {
     "path 16 bench cull": (("composite_forward", "fused_forward", "fused_backward",
                             "segment_reduce"), ("composite_backward", "segment_reduce11", *PROBES)),
     "path 16 variants": (("composite_forward", "composite_backward", "segment_reduce11",
-                          "fused_forward", "fused_backward", "segment_reduce"), PROBES),
+                          "fused_forward", "fused_backward", "segment_reduce", "project_forward",
+                          "project_backward"), PROBES),
     "path 16 entry": EVAL,
 }
 # No path but path 11 launches K1, K2 or K3 at another width.
@@ -1287,6 +1302,136 @@ def check_loss_kernel(final_map, final_frame) -> tuple:
     return errs, times, bounds, library
 
 
+def projection_work(n: int, scale_cols: int) -> dict:
+    """(bytes, operations) of the projection kernels over n Gaussians, each
+    byte moved once: the forward reads the leaves (means, quaternion,
+    logit, log scales: 8 + scale_cols floats) and active, and writes xy,
+    depth, conic and opacity (7 floats), radius, the two int64 rectangles
+    and visible; the backward (mapping's: every gradient) reads the leaves
+    and 7 cotangent floats and writes the leaves' gradients. Operations are
+    left at 0: a few hundred float operations a Gaussian take a tenth of
+    the bytes' time at 67 TFLOP/s."""
+    leaves = 4 * (8 + scale_cols)
+    return {"project_forward": (n * (leaves + 1 + 4 * 7 + 4 + 8 * 4 + 1), 0),
+            "project_backward": (n * (2 * leaves + 4 * 7), 0)}
+
+
+def ulps(got, ref) -> int:
+    """The largest distance in units of the last place between two float32
+    tensors (0: equal bit for bit; NaNs compared by their bits)."""
+    import torch
+
+    a, b = (x.contiguous().view(torch.int32).long() for x in (got, ref))
+    a, b = (torch.where(x < 0, -(x & 0x7FFFFFFF), x) for x in (a, b))  # an ordered line
+    return int((a - b).abs().max()) if a.numel() else 0
+
+
+def check_projection(gm, q, t, cam, label: str) -> tuple:
+    """Phase 5c: the projection kernels (csrc/projection.cu) on a map at a
+    pose, as the generic render calls them (camera-frame means): the forward
+    equal to `project` after _prep_gaussians on the card bit for bit (each
+    integer output's moved entries and each float output's largest distance
+    in ulps printed), the backward against project_backward_plain in float32 with tracking's and
+    mapping's gradients (each column within 1e-5 of its largest; an
+    isotropic map's quaternion column, zero in exact arithmetic, under 1e-5
+    of the log-scale gradient's largest on both sides), twice bit for bit;
+    times in turns with the plain versions (the forward's: `project` and
+    _prep_gaussians; the backward's: the twin), beside the route the kernels
+    replace (autograd's forward and backward of the plain versions) and the
+    memory each route holds between forward and backward; the kernels' rows
+    take their device time under torch.profiler where verified; bounds. Returns
+    (errs, times, bounds, library), the library column the autograd route."""
+    import torch
+
+    from splatam_tpu_torch.render import api, projection
+    from splatam_tpu_torch.scripts.harness import device_busy
+    from splatam_tpu_torch.slam import steps
+
+    means_cam, rots = steps.transform_to_frame(gm, q, t, False, False)
+    leaves = (means_cam, rots, gm.logit_opacities, gm.log_scales)
+    intr = (cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height)
+    consts = projection.project_consts(cam.w2c, *intr)
+    w2c = cam.w2c_tensor(means_cam.device)
+    n, cols = means_cam.shape[0], gm.log_scales.shape[1]
+
+    def plain_forward(m, u, lo, ls):
+        quats, logit, scales = api._prep_gaussians(u, lo, ls)
+        return projection.project(m, quats, logit, scales, gm.active, w2c, *intr)
+
+    got, got_aux = projection.project_forward(*leaves, gm.active, consts)
+    ref, ref_aux = plain_forward(*leaves)
+    moved = {f: int((a != b).sum()) for f, a, b in zip(ref_aux._fields, got_aux, ref_aux)}
+    dist = {f: ulps(a, b) for f, a, b in zip(ref._fields, got, ref)}
+    ok = not any(moved.values()) and not any(dist.values())
+    print(f"[{label}] project_forward: {n} Gaussians, integer outputs moved {moved}, float "
+          f"outputs' largest ulp distance {dist} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"project_forward disagrees with project ({label})")
+    gen = torch.Generator(means_cam.device).manual_seed(3)
+    cot = [torch.randn(shape, device=means_cam.device, generator=gen)
+           for shape in ((n, 2), (n,), (n, 3), (n,))]
+    errs = {"project_forward": max(float((a - b).abs().max()) for a, b in zip(got, ref))}
+    for phase, needs in (("tracking", (True, False, False, False)), ("mapping", (True,) * 4)):
+        got = projection.project_backward(*leaves, consts, cot, needs)
+        ref = projection.project_backward_plain(cot, *leaves, w2c, *intr, needs=needs)
+        again = projection.project_backward(*leaves, consts, cot, needs)
+        same = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+        rows, ok = [], same
+        for i, (g, r) in enumerate(zip(got, ref)):
+            if g is None:
+                continue
+            if i == 1 and cols == 1:  # rounding on both sides
+                scale = float(ref[3].abs().max())
+                rel = max(float(g.abs().max()), float(r.abs().max())) / scale
+            else:
+                rel = max(rel_err(g.reshape(n, -1), r.reshape(n, -1))[1])
+            rows.append(f"{('means', 'quats', 'logits', 'log_scales')[i]} {rel:.1e}")
+            ok = ok and rel <= 1e-5 and bool(torch.isfinite(g).all())
+            errs["project_backward"] = max(errs.get("project_backward", 0.0),
+                                           float((g - r).abs().max()))
+        print(f"[{label}] project_backward ({phase}): worst column rel {', '.join(rows)} "
+              f"tol=1e-05 repeat_equal={same} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"project_backward disagrees with project_backward_plain ({label}, {phase})")
+
+    mapping = (True,) * 4
+    kernels = {"project_forward": lambda: projection.project_forward(*leaves, gm.active, consts),
+               "project_backward": lambda: projection.project_backward(*leaves, consts, cot,
+                                                                       mapping)}
+    times = time_turns([
+        ("project_forward", kernels["project_forward"], lambda: plain_forward(*leaves)),
+        ("project_backward", kernels["project_backward"],
+         lambda: projection.project_backward_plain(cot, *leaves, w2c, *intr))])
+    for name, fn in kernels.items():  # the kernel's own time, without the host's launch gaps
+        busy = device_busy(fn, means_cam.device, 20)
+        print(f"[{label}] {name}: device time {busy.ms:.4f} ms a call (profiler, "
+              f"verified={busy.verified})", flush=True)
+        if busy.verified:
+            times[name] = (busy.ms, times[name][1])
+
+    xs = [x.detach().requires_grad_(True) for x in leaves]
+    forwards = {"autograd": lambda: plain_forward(*xs)[0],
+                "kernels": lambda: projection.project_gauss(*xs, gm.active, consts)[0]}
+    library, held = {}, {}
+    for route, fwd in forwards.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        out = fwd()
+        torch.cuda.synchronize()
+        held[route] = (torch.cuda.memory_allocated() - base) / 1e6
+        torch.autograd.grad(list(out), xs, cot)
+        del out
+        library[route] = min(event_ms(lambda fwd=fwd: torch.autograd.grad(list(fwd()), xs, cot),
+                                      10, 2) for _ in range(2))
+    print(f"[{label}] forward+backward with every gradient: autograd of the plain versions "
+          f"{library['autograd']:.3f} ms (holds {held['autograd']:.2f} MB until its backward, "
+          f"{1e6 * held['autograd'] / n:.0f} B a Gaussian), the kernels {library['kernels']:.3f} "
+          f"ms (hold {held['kernels']:.2f} MB)", flush=True)
+    bounds = report_bounds(projection_work(n, cols), times, label)
+    return errs, times, bounds, {"project_forward": library["autograd"],
+                                 "project_backward": library["autograd"]}
+
+
 def report_quality(label: str, metrics: dict, card: str) -> None:
     """Print the final evaluation's metrics; fatal unless all are finite."""
     vals = [metrics[k] for k in QUALITY] + list(metrics.get("runtime", {}).values())
@@ -1898,8 +2043,8 @@ def drive_generic(m) -> tuple:
     """Path 11's run: each case through render_gaussians, forward and the
     backward of a seeded weighting of every output row; counts zeroed just
     before each case and read just after, which must show one launch of K1
-    and K2 at the case's channel count and of K3 at 6 + that count, and no
-    other. Case e's rows must equal render_rgbd_sil's bit for bit. Returns
+    and K2 at the case's channel count, of K3 at 6 + that count and of each
+    projection kernel, and no other. Case e's rows must equal render_rgbd_sil's bit for bit. Returns
     the counts summed over the cases."""
     import torch
 
@@ -1927,7 +2072,8 @@ def drive_generic(m) -> tuple:
         moved = {k: c for k, c in launches.items() if c}
         want = {instance_name("composite_forward", ch): 1,
                 instance_name("composite_backward", ch): 1,
-                instance_name("segment_reduce", 6 + ch): 1}
+                instance_name("segment_reduce", 6 + ch): 1,
+                "project_forward": 1, "project_backward": 1}
         finite = bool(torch.isfinite(img).all()) and all(bool(torch.isfinite(g).all())
                                                          for g in grads)
         print(f"path 11 {label}: kernel ch {ch}, image {tuple(img.shape)}, {n_pairs} pairs, "
@@ -3016,6 +3162,16 @@ def drive_bench(final_map, device) -> dict:
     return launches
 
 
+def final_map_of(rt, frames: int, device) -> tuple:
+    """(the active span of rt's map, its last frame's pose q, t, camera)."""
+    import torch
+
+    span = rt.gm.span()
+    return (type(rt.gm)(*(a[:span] for a in rt.gm)),
+            torch.as_tensor(rt.cam_rots[frames - 1], device=device),
+            torch.as_tensor(rt.cam_trans[frames - 1], device=device), rt.cam)
+
+
 def final_frame_of(rt, idx: int, device):
     """Frame idx of the runtime's dataset on the device (colour, depth)."""
     from splatam_tpu_torch.data import frame_to_tensors
@@ -3098,6 +3254,9 @@ def main() -> None:
     for table, loss_table in zip((errs, times, bounds, library),
                                  check_loss_kernel(final_map, final_frame)):
         table.update(loss_table)
+    for table, proj_table in zip((errs, times, bounds, library),
+                                 check_projection(*final_map, f"projection, {label}")):
+        table.update(proj_table)
     profile_frame(rt, FRAMES, "path 1", device)
     del rt, view
     torch.cuda.empty_cache()
@@ -3105,6 +3264,7 @@ def main() -> None:
     rt, launches["path 2"] = drive_path("path 2", bench_config(work, tpu={"rebin_every": 1}),
                                         FRAMES_GENERIC, device)
     profile_frame(rt, FRAMES_GENERIC, "path 2", device)
+    check_projection(*final_map_of(rt, FRAMES_GENERIC, device), "projection, path 2")
     del rt
     torch.cuda.empty_cache()
 

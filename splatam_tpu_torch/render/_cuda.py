@@ -50,6 +50,12 @@ _SIGNATURES = {
     # outlier threshold, the size, the mask's switches and scalars, outputs
     "loss_forward": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I,
                      _F, _F, _F, _F, _P, _P, _I, _P, _P, _P],
+    # the generic render's projection (csrc/projection.cu): n, the camera's
+    # floats, the leaves, the outputs; the backward's cotangents with their
+    # strides, then its four outputs (null: not asked for)
+    "project_forward": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "project_backward": [_I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _I, _I, _P, _I,
+                         _P, _P, _P, _P, _P],
     # what the compiler gave a kernel (registers, local bytes, blocks per SM)
     "composite_forward_info": [_I, _IP, _IP, _IP],
     "composite_backward_info": [_I, _IP, _IP, _IP],
@@ -57,6 +63,7 @@ _SIGNATURES = {
     "fused_backward_info": [_IP, _IP, _IP],
     "segment_reduce_info": [_I, _IP, _IP, _IP],
     "loss_info": [_I, _IP, _IP, _IP],
+    "project_info": [_I, _IP, _IP, _IP],
     # the fused forward's probe kernels (csrc/fused_probes.cu)
     "fused_forward2": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "fused_math_only": [_P, _P, _P, _I, _I, _I, _I, _P, _P],

@@ -5,7 +5,7 @@ Counterpart of splatam_tpu/render/api.py: one pass composites r, g, b, z,
 z^2 and emits the silhouette from the transmittance (silhouette =
 1 - T_final). Four renders: the generic differentiable one of any
 channels (render_gaussians; render_rgbd_sil is its r, g, b case:
-projection by autograd, K1 -> K2 -> K3), the pair-space tracking render
+the projection kernels, K1 -> K2 -> K3), the pair-space tracking render
 (per-pair rows, gradients to the pose) and the fused isotropic mapping
 render. The reference's RenderConfig has no counterpart: its pair-buffer
 sizes have none (the port sizes buffers exactly, so nothing overflows),
@@ -77,14 +77,21 @@ def project_gaussians(cam: Camera, means3d, unnorm_rotations, logit_opacities, l
     intrinsics_override (fx, fy, cx, cy) replaces cam's intrinsics (the
     image size stays cam's), and lim_wh the (width, height) of the
     frustum clamp: the projection of one band of a larger image (its
-    binning also takes the depth key of that image's tile grid)."""
-    quats, logit_op, scales = _prep_gaussians(unnorm_rotations, logit_opacities, log_scales)
+    binning also takes the depth key of that image's tile grid).
+
+    CUDA tensors take the projection kernels (projection.ProjectGauss: the
+    camera passed by value, gradients in closed form to whichever leaves
+    ask for them), CPU tensors `project` through autograd."""
     fx, fy, cx, cy = (intrinsics_override if intrinsics_override is not None
                       else (cam.fx, cam.fy, cam.cx, cam.cy))
-    with spans.waited("render.w2c"):  # a blocking upload
-        w2c = cam.w2c_tensor(means3d.device)
+    if means3d.is_cuda:
+        consts = projection_mod.project_consts(cam.w2c, fx, fy, cx, cy, cam.width, cam.height,
+                                               lim_wh)
+        return projection_mod.project_gauss(means3d, unnorm_rotations, logit_opacities,
+                                            log_scales, active, consts)
+    quats, logit_op, scales = _prep_gaussians(unnorm_rotations, logit_opacities, log_scales)
     return projection_mod.project(
-        means3d, quats, logit_op, scales, active, w2c,
+        means3d, quats, logit_op, scales, active, cam.w2c_tensor(means3d.device),
         fx, fy, cx, cy, cam.width, cam.height, lim_wh=lim_wh,
     )
 
@@ -242,10 +249,10 @@ def render_rgbd_sil(cam: Camera, means3d, rgb_colors, unnorm_rotations, logit_op
                     means2d_dummy=None, backend: str = "auto", intrinsics_override=None,
                     lim_wh=None, bin_opts: BinOptions = CLASSIC) -> RenderOutput:
     """Generic differentiable render of r, g, b, z, z^2 and the
-    silhouette: project (plain PyTorch, so autograd carries the gradients
-    to every input), bin under no_grad, composite with K1 forward and K2 ->
-    K3 backward (composite.CompositeGauss); `backend` as render_gaussians
-    takes it.
+    silhouette: project (project_gaussians: the projection kernels on the
+    card, plain PyTorch on the CPU; gradients to every input), bin under
+    no_grad, composite with K1 forward and K2 -> K3 backward
+    (composite.CompositeGauss); `backend` as render_gaussians takes it.
 
     means3d are in the frame cam.w2c maps from. `pair_structure` reuses an
     earlier binning; per-pair alpha still comes from this call's

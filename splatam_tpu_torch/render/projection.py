@@ -5,12 +5,24 @@ expression: the reference's NDC pipeline (utils/recon_helpers.py:9-13 +
 ndc2Pix), the EWA Jacobian with the 1.3*tanfov clamp, the +0.3 dilation,
 the alpha-cutoff tile rectangle. Used to build pair structures and by the
 generic (densify) render.
+
+`project` is the plain version and the CPU's route. On the card the
+projection is two hand-written kernels (csrc/projection.cu), wrapped by
+`ProjectGauss`, an autograd Function that starts from the map's leaves
+(render/api.py _prep_gaussians folded in) and keeps only its inputs:
+`project_forward` returns what `project` returns, `project_backward` the
+gradient in closed form, of which `project_backward_plain` is the
+specification in PyTorch (any float dtype).
 """
 from __future__ import annotations
 
+import ctypes
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
+
+from splatam_tpu_torch.render import _cuda
 
 TILE = 16  # BLOCK_X = BLOCK_Y = 16 in the reference rasterizer
 NEAR_CLIP = 0.2  # in_frustum threshold p_view.z > 0.2
@@ -143,3 +155,301 @@ def project(means3d, quats, logit_opacities, scales, active, w2c,
         visible=visible,
     )
     return proj, aux
+
+
+def project_consts(w2c, fx, fy, cx, cy, width: int, height: int,
+                   lim_wh: tuple | None = None) -> tuple[float, ...]:
+    """The projection kernels' camera arguments (csrc/projection.cu
+    ProjConsts): w2c's rotation (row-major) and translation, fx, fy, the NDC
+    terms 2 fx / W, (W - 2 cx) / W, 2 fy / H, (H - 2 cy) / H, the clamp's
+    limx, limy, W, H and the tile grid, each formed in double as `project`
+    forms it and rounded to float32 by the call, as PyTorch rounds a Python
+    scalar against a float32 tensor. w2c: a nested 4x4 sequence."""
+    lim_w, lim_h = lim_wh if lim_wh is not None else (width, height)
+    return (*(float(w2c[i][j]) for i in range(3) for j in range(3)),
+            *(float(w2c[i][3]) for i in range(3)), float(fx), float(fy),
+            2.0 * fx / width, (width - 2.0 * cx) / width,
+            2.0 * fy / height, (height - 2.0 * cy) / height,
+            1.3 * (lim_w / (2.0 * fx)), 1.3 * (lim_h / (2.0 * fy)), float(width),
+            float(height), float((width + TILE - 1) // TILE), float((height + TILE - 1) // TILE))
+
+
+def _consts_arg(consts: tuple[float, ...]):
+    return (ctypes.c_float * len(consts))(*consts)
+
+
+def _leaves(means3d, unnorm_rotations, logit_opacities, log_scales, active):
+    """The kernels' views of the leaves, checked: float32 [N, 3], [N, 4],
+    [N] (from [N] or [N, 1]), [N, 1] or [N, 3], bool [N], contiguous."""
+    n = means3d.shape[0]
+    means3d, unnorm_rotations, log_scales = (x.contiguous() for x in (means3d, unnorm_rotations,
+                                                                      log_scales))
+    logit = logit_opacities.reshape(-1).contiguous()
+    _cuda.require(means3d, "means3d", torch.float32, (n, 3))
+    _cuda.require(unnorm_rotations, "unnorm_rotations", torch.float32, (n, 4))
+    _cuda.require(logit, "logit_opacities", torch.float32, (n,))
+    if log_scales.dim() != 2 or log_scales.shape[1] not in (1, 3):
+        raise ValueError(f"log_scales: expected shape ({n}, 1) or ({n}, 3), got "
+                         f"{tuple(log_scales.shape)}")
+    _cuda.require(log_scales, "log_scales", torch.float32, (n, None))
+    if active is not None:
+        _cuda.require(active, "active", torch.bool, (n,))
+    return means3d, unnorm_rotations, logit, log_scales, active
+
+
+def project_forward(means3d, unnorm_rotations, logit_opacities, log_scales, active,
+                    consts: tuple[float, ...]):
+    """Kernel wrapper: (Projected, ProjectedAux) as `project` returns them for
+    the leaves as the map holds them (unnormalised rotations, logit
+    opacities [N] or [N, 1], log scales [N, 1] or [N, 3]); consts from
+    project_consts. One launch."""
+    means3d, quats, logit, log_scales, active = _leaves(means3d, unnorm_rotations,
+                                                        logit_opacities, log_scales, active)
+    n, dev = means3d.shape[0], means3d.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    xy, depth = torch.empty((n, 2), **f32), torch.empty((n,), **f32)
+    conic, opacity = torch.empty((n, 3), **f32), torch.empty((n,), **f32)
+    radius = torch.empty((n,), dtype=torch.int32, device=dev)
+    rect_min = torch.empty((n, 2), dtype=torch.int64, device=dev)
+    rect_wh = torch.empty((n, 2), dtype=torch.int64, device=dev)
+    visible = torch.empty((n,), dtype=torch.bool, device=dev)
+    _cuda.launch(means3d, "project_forward", n, _consts_arg(consts), means3d.data_ptr(),
+                 quats.data_ptr(), logit.data_ptr(), log_scales.data_ptr(), log_scales.shape[1],
+                 active.data_ptr(), xy.data_ptr(), depth.data_ptr(), conic.data_ptr(),
+                 opacity.data_ptr(), radius.data_ptr(), rect_min.data_ptr(), rect_wh.data_ptr(),
+                 visible.data_ptr())
+    project_forward.launches += 1
+    return (Projected(xy=xy, depth=depth, conic=conic, opacity=opacity),
+            ProjectedAux(radius=radius, rect_min=rect_min, rect_wh=rect_wh, visible=visible))
+
+
+project_forward.launches = 0
+
+
+def _cot_args(g, shape: tuple, device) -> tuple:
+    """A cotangent as the backward kernel takes it: a pointer (null for
+    none) and its strides in elements, which may be any (autograd hands over
+    column slices of K3's output, or expanded tensors)."""
+    if g is None:
+        return (None, *(0 for _ in shape))
+    if g.dtype != torch.float32 or tuple(g.shape) != shape or g.device != device:
+        raise ValueError(f"cotangent: expected float32 {shape} on {device}, got {g.dtype} "
+                         f"{tuple(g.shape)} on {g.device}")
+    return (g.data_ptr(), *g.stride())
+
+
+def project_backward(means3d, unnorm_rotations, logit_opacities, log_scales,
+                     consts: tuple[float, ...], cot, needs=(True, True, True, True)):
+    """Kernel wrapper: the gradients (means3d, unnorm_rotations,
+    logit_opacities, log_scales), each in its input's shape, of the
+    projection given the cotangents cot = (xy [N, 2], depth [N], conic
+    [N, 3], opacity [N]), each None for zero and read at its own strides;
+    None where `needs` asks for none. One launch."""
+    means3d, quats, logit, ls, _ = _leaves(means3d, unnorm_rotations, logit_opacities,
+                                           log_scales, None)
+    n, dev = means3d.shape[0], means3d.device
+    outs = [torch.empty(shape, dtype=torch.float32, device=dev) if need else None
+            for need, shape in zip(needs, ((n, 3), (n, 4), (n,), tuple(ls.shape)))]
+    g_xy, g_depth, g_conic, g_op = cot
+    _cuda.launch(means3d, "project_backward", n, _consts_arg(consts), means3d.data_ptr(),
+                 quats.data_ptr(), logit.data_ptr(), ls.data_ptr(), ls.shape[1],
+                 *_cot_args(g_xy, (n, 2), dev), *_cot_args(g_depth, (n,), dev),
+                 *_cot_args(g_conic, (n, 3), dev), *_cot_args(g_op, (n,), dev),
+                 *(None if o is None else o.data_ptr() for o in outs))
+    project_backward.launches += 1
+    if outs[2] is not None:
+        outs[2] = outs[2].reshape(logit_opacities.shape)
+    return tuple(outs)
+
+
+project_backward.launches = 0
+
+
+class ProjectGauss(torch.autograd.Function):
+    """The projection of the map's leaves on the card: forward
+    project_forward, backward project_backward, which writes only the
+    gradients autograd asks for. Keeps its inputs, nothing else."""
+
+    @staticmethod
+    def forward(ctx, means3d, unnorm_rotations, logit_opacities, log_scales, active, consts):
+        proj, aux = project_forward(means3d, unnorm_rotations, logit_opacities, log_scales,
+                                    active, consts)
+        ctx.save_for_backward(means3d, unnorm_rotations, logit_opacities, log_scales)
+        ctx.consts = consts
+        ctx.mark_non_differentiable(*aux)
+        ctx.set_materialize_grads(False)
+        return (*proj, *aux)
+
+    @staticmethod
+    def backward(ctx, g_xy, g_depth, g_conic, g_opacity, *_aux):
+        needs = ctx.needs_input_grad[:4]
+        grads = project_backward(*ctx.saved_tensors, ctx.consts,
+                                 (g_xy, g_depth, g_conic, g_opacity), needs)
+        return (*grads, None, None)
+
+
+def project_gauss(means3d, unnorm_rotations, logit_opacities, log_scales, active,
+                  consts: tuple[float, ...]):
+    """(Projected, ProjectedAux) through ProjectGauss."""
+    out = ProjectGauss.apply(means3d, unnorm_rotations, logit_opacities, log_scales, active,
+                             consts)
+    return Projected(*out[:4]), ProjectedAux(*out[4:])
+
+
+def _rotation_of(q):
+    """[N, 3, 3]: _cov3d_components' rotation matrix of unit wxyz quaternions."""
+    r, x, y, z = q.unbind(-1)
+    return torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - r * z), 2 * (x * z + r * y),
+                        2 * (x * y + r * z), 1 - 2 * (x * x + z * z), 2 * (y * z - r * x),
+                        2 * (x * z - r * y), 2 * (y * z + r * x), 1 - 2 * (x * x + y * y)],
+                       dim=-1).reshape(-1, 3, 3)
+
+
+def project_state(means3d, unnorm_rotations, log_scales, w2c, fx, fy, cx, cy, width: int,
+                  height: int, lim_wh: tuple | None = None) -> SimpleNamespace:
+    """What the backward reads of the forward, recomputed from the leaves
+    with `project`'s own expressions (csrc/projection.cu ProjState), so
+    every branch (in_front, the clamps, det_ok) decides as it decides."""
+    s = SimpleNamespace()
+    rot3 = w2c[:3, :3]
+    s.rot3 = rot3
+    p_view = means3d @ rot3.T + w2c[:3, 3]
+    s.px, s.py, s.tz = p_view.unbind(-1)
+    s.in_front = s.tz > NEAR_CLIP
+    s.safe_tz = torch.where(s.in_front, s.tz, torch.ones_like(s.tz))
+    s.p_w = 1.0 / (s.safe_tz + 1e-7)
+    s.ax, s.bx = 2.0 * fx / width, (width - 2.0 * cx) / width
+    s.ay, s.by = 2.0 * fy / height, (height - 2.0 * cy) / height
+    s.u = unnorm_rotations
+    s.n1 = torch.linalg.vector_norm(s.u, dim=-1, keepdim=True)
+    s.c1 = torch.clamp(s.n1, min=1e-12)
+    s.q1 = s.u / s.c1
+    s.n2 = torch.linalg.vector_norm(s.q1, dim=-1, keepdim=True)
+    s.q = s.q1 / s.n2
+    s.rq = _rotation_of(s.q)
+    s.sc = torch.exp(log_scales.expand(-1, 3) if log_scales.shape[1] == 1 else log_scales)
+    s.ss = s.sc * s.sc
+    s00, s01, s02, s11, s12, s22 = _cov3d_components(s.q1, s.sc)
+    sigma = [[s00, s01, s02], [s01, s11, s12], [s02, s12, s22]]
+    wsig = [[sum(rot3[i, k] * sigma[k][j] for k in range(3)) for j in range(3)]
+            for i in range(3)]
+    s.v = tuple(sum(wsig[i][k] * rot3[j, k] for k in range(3))
+                for i, j in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)))
+    lim_w, lim_h = lim_wh if lim_wh is not None else (width, height)
+    s.limx, s.limy = 1.3 * (lim_w / (2.0 * fx)), 1.3 * (lim_h / (2.0 * fy))
+    s.vx, s.vy = s.px / s.safe_tz, s.py / s.safe_tz
+    s.txtz = torch.clamp(s.vx, -s.limx, s.limx)
+    s.tytz = torch.clamp(s.vy, -s.limy, s.limy)
+    s.tx, s.ty = s.txtz * s.safe_tz, s.tytz * s.safe_tz
+    s.inv_z = 1.0 / s.safe_tz
+    s.inv_z2 = s.inv_z * s.inv_z
+    s.j00, s.j02 = fx * s.inv_z, -fx * s.tx * s.inv_z2
+    s.j11, s.j12 = fy * s.inv_z, -fy * s.ty * s.inv_z2
+    v00, v01, v02, v11, v12, v22 = s.v
+    j00, j02, j11, j12 = s.j00, s.j02, s.j11, s.j12
+    s.c00 = j00 * (j00 * v00 + j02 * v02) + j02 * (j00 * v02 + j02 * v22) + 0.3
+    s.c01 = j11 * (j00 * v01 + j02 * v12) + j12 * (j00 * v02 + j02 * v22)
+    s.c11 = j11 * (j11 * v11 + j12 * v12) + j12 * (j11 * v12 + j12 * v22) + 0.3
+    s.det = s.c00 * s.c11 - s.c01 * s.c01
+    s.det_ok = s.det != 0.0
+    s.inv_det = 1.0 / torch.where(s.det_ok, s.det, torch.ones_like(s.det))
+    return s
+
+
+def project_backward_plain(cot, means3d, unnorm_rotations, logit_opacities, log_scales, w2c,
+                           fx, fy, cx, cy, width: int, height: int, lim_wh: tuple | None = None,
+                           needs=(True, True, True, True)):
+    """The projection's gradient in closed form: what project_backward's
+    kernel computes, in PyTorch (any float dtype). cot = (xy, depth, conic,
+    opacity) cotangents, None for zero; returns the gradients of (means3d,
+    unnorm_rotations, logit_opacities, log_scales) of _prep_gaussians and
+    `project`, each in its input's shape, None where `needs` asks for none.
+    PyTorch autograd's conventions at each branch: a clamp passes the
+    gradient on its closed interval; safe_tz's and safe_det's replaced
+    lanes, and the quaternion norm's clamp below 1e-12, pass none."""
+    zero = means3d.new_zeros(means3d.shape[0])
+    g_xy, g_depth, g_conic, g_op = cot
+    gx, gy = (zero, zero) if g_xy is None else g_xy.unbind(-1)
+    gd = zero if g_depth is None else g_depth
+    ga, gb, gc = (zero, zero, zero) if g_conic is None else g_conic.unbind(-1)
+    d_means = d_quats = d_logit = d_ls = None
+    if needs[2]:
+        op = torch.sigmoid(logit_opacities.reshape(-1))
+        d_logit = ((zero if g_op is None else g_op) * (1 - op) * op).reshape(
+            logit_opacities.shape)
+    if not (needs[0] or needs[1] or needs[3]):
+        return d_means, d_quats, d_logit, d_ls
+    s = project_state(means3d, unnorm_rotations, log_scales, w2c, fx, fy, cx, cy, width, height,
+                      lim_wh)
+    v00, v01, v02, v11, v12, v22 = s.v
+    j00, j02, j11, j12 = s.j00, s.j02, s.j11, s.j12
+
+    # conic = (c11, -c01, c00) * inv_det, inv_det = 1 / where(det_ok, det, 1)
+    dc11, dc01, dc00 = ga * s.inv_det, -(gb * s.inv_det), gc * s.inv_det
+    d_inv = ga * s.c11 + gb * -s.c01 + gc * s.c00
+    d_det = torch.where(s.det_ok, -d_inv * s.inv_det * s.inv_det, zero)
+    dc00 = dc00 + d_det * s.c11
+    dc11 = dc11 + d_det * s.c00
+    dc01 = dc01 - 2.0 * d_det * s.c01
+    # c00 = j00 A0 + j02 B0, c01 = j11 A1 + j12 B0, c11 = j11 A2 + j12 B2
+    a0, b0, a1 = j00 * v00 + j02 * v02, j00 * v02 + j02 * v22, j00 * v01 + j02 * v12
+    a2, b2 = j11 * v11 + j12 * v12, j11 * v12 + j12 * v22
+    da0, db0, da1 = dc00 * j00, dc00 * j02 + dc01 * j12, dc01 * j11
+    da2, db2 = dc11 * j11, dc11 * j12
+    dj00 = dc00 * a0 + da0 * v00 + db0 * v02 + da1 * v01
+    dj02 = dc00 * b0 + da0 * v02 + db0 * v22 + da1 * v12
+    dj11 = dc01 * a1 + dc11 * a2 + da2 * v11 + db2 * v12
+    dj12 = dc01 * b0 + dc11 * b2 + da2 * v12 + db2 * v22
+
+    if needs[0]:
+        # j00 = fx inv_z, j02 = -fx tx inv_z2 (and y), inv_z2 = inv_z^2, inv_z = 1 / safe_tz
+        dtx, dty = dj02 * s.inv_z2 * -fx, dj12 * s.inv_z2 * -fy
+        dinv_z2 = dj02 * (-fx * s.tx) + dj12 * (-fy * s.ty)
+        dinv_z = dj00 * fx + dj11 * fy + 2.0 * dinv_z2 * s.inv_z
+        dsafe = -dinv_z * s.inv_z * s.inv_z + dtx * s.txtz + dty * s.tytz
+        # tx = clamp(px / safe_tz) safe_tz: the clamp passes its closed interval
+        dvx = torch.where((s.vx >= -s.limx) & (s.vx <= s.limx), dtx * s.safe_tz, zero)
+        dvy = torch.where((s.vy >= -s.limy) & (s.vy <= s.limy), dty * s.safe_tz, zero)
+        dpx, dpy = dvx / s.safe_tz, dvy / s.safe_tz
+        dsafe = dsafe - dvx * s.px / (s.safe_tz * s.safe_tz) - dvy * s.py / (s.safe_tz * s.safe_tz)
+        # pix = ((ndc + 1) W - 1) / 2, ndc = (a p - b safe_tz) p_w, p_w = 1 / (safe_tz + 1e-7)
+        dxn, dyn = gx * 0.5 * width, gy * 0.5 * height
+        dpx = dpx + dxn * s.p_w * s.ax
+        dpy = dpy + dyn * s.p_w * s.ay
+        dp_w = dxn * (s.ax * s.px - s.bx * s.safe_tz) + dyn * (s.ay * s.py - s.by * s.safe_tz)
+        dsafe = dsafe - dxn * s.p_w * s.bx - dyn * s.p_w * s.by - dp_w * s.p_w * s.p_w
+        dtz = gd + torch.where(s.in_front, dsafe, zero)
+        d_means = torch.stack([dpx, dpy, dtz], dim=-1) @ s.rot3  # p = W m + t
+    if not (needs[1] or needs[3]):
+        return d_means, d_quats, d_logit, d_ls
+
+    # dv, the upper triangle of W Sigma W^T -> dSigma = W^T D W
+    d = torch.stack([da0 * j00, da1 * j00, da0 * j02 + db0 * j00,
+                     zero, da2 * j11, da1 * j02 + da2 * j12 + db2 * j11,
+                     zero, zero, db0 * j02 + db2 * j12], dim=-1).reshape(-1, 3, 3)
+    g = s.rot3.T @ d @ s.rot3
+    # Sigma = R diag(S) R^T over its six components, each off-diagonal one read
+    # at two places: dR = (G + G^T) R diag(S), dS = diag(R^T G R)
+    d_rot = (g + g.transpose(1, 2)) @ s.rq * s.ss[:, None, :]
+    d_ss = torch.diagonal(s.rq.transpose(1, 2) @ g @ s.rq, dim1=1, dim2=2)
+    if needs[3]:
+        dl = 2.0 * s.sc * d_ss * s.sc  # S = exp(l)^2
+        d_ls = dl.sum(-1, keepdim=True) if log_scales.shape[1] == 1 else dl
+    if needs[1]:
+        r, x, y, z = s.q.unbind(-1)
+        dr = d_rot.reshape(-1, 9).unbind(-1)
+        dq = 2.0 * torch.stack([
+            -z * dr[1] + y * dr[2] + z * dr[3] - x * dr[5] - y * dr[6] + x * dr[7],
+            y * dr[1] + z * dr[2] + y * dr[3] - 2.0 * x * dr[4] - r * dr[5] + z * dr[6]
+            + r * dr[7] - 2.0 * x * dr[8],
+            -2.0 * y * dr[0] + x * dr[1] + r * dr[2] + x * dr[3] + z * dr[5] - r * dr[6]
+            + z * dr[7] - 2.0 * y * dr[8],
+            -2.0 * z * dr[0] - r * dr[1] + x * dr[2] + r * dr[3] - 2.0 * z * dr[4] + y * dr[5]
+            + x * dr[6] + y * dr[7]], dim=-1)
+        # q = q1 / |q1|; q1 = u / max(|u|, 1e-12); a norm of 0 passes nothing
+        dn2 = -(dq * s.q1).sum(-1, keepdim=True) / (s.n2 * s.n2)
+        dq1 = dq / s.n2 + torch.where(s.n2 != 0, s.q1 * (dn2 / s.n2), 0.0)
+        dc1 = -(dq1 * s.u).sum(-1, keepdim=True) / (s.c1 * s.c1)
+        dn1 = torch.where(s.n1 >= 1e-12, dc1, 0.0)
+        d_quats = dq1 / s.c1 + torch.where(s.n1 != 0, s.u * (dn1 / s.n1), 0.0)
+    return d_means, d_quats, d_logit, d_ls

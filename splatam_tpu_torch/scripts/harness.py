@@ -11,7 +11,7 @@ from typing import NamedTuple
 import torch
 
 from splatam_tpu_torch.core import fused_loss
-from splatam_tpu_torch.render import composite, fused_iso, probes
+from splatam_tpu_torch.render import composite, fused_iso, probes, projection
 from splatam_tpu_torch.utils.device import require_device
 
 def wide_launch_counts() -> dict:
@@ -30,7 +30,7 @@ WIDE = tuple(wide_launch_counts())
 # Every hand-written kernel of the port, by the name chip_smoke.py reports.
 KERNELS = ("composite_forward", "composite_backward", "fused_forward", "fused_backward",
            "segment_reduce", "segment_reduce11", "fwd2", "dma_only", "dma_b2", "dma_b4",
-           "math_only", "loss_track", "loss_map", *WIDE)
+           "math_only", "loss_track", "loss_map", "project_forward", "project_backward", *WIDE)
 SHORT = {"composite_forward": "K1", "composite_backward": "K2", "fused_forward": "K4",
          "fused_backward": "K5", "segment_reduce": "K3-8", "segment_reduce11": "K3-11",
          **{n: n.replace("composite_forward_", "K1-").replace("composite_backward_", "K2-")
@@ -47,12 +47,14 @@ def launch_counts() -> dict:
             "fwd2": probes.fwd2.launches, "dma_only": by_block[1], "dma_b2": by_block[2],
             "dma_b4": by_block[4], "math_only": probes.math_only.launches,
             "loss_track": fused_loss.loss_terms.launches["track"],
-            "loss_map": fused_loss.loss_terms.launches["map"], **wide_launch_counts()}
+            "loss_map": fused_loss.loss_terms.launches["map"],
+            "project_forward": projection.project_forward.launches,
+            "project_backward": projection.project_backward.launches, **wide_launch_counts()}
 
 
 def reset_launch_counts() -> None:
     for fn in (fused_iso.fused_forward, fused_iso.fused_backward, probes.fwd2,
-               probes.math_only):
+               probes.math_only, projection.project_forward, projection.project_backward):
         fn.launches = 0
     for fn in (composite.composite_forward, composite.composite_backward):
         fn.launches = dict.fromkeys(composite.CHANNELS, 0)
@@ -117,7 +119,7 @@ KERNEL_SYMBOLS = ("composite_forward_kernel", "composite_backward_kernel",
                   "fused_forward_kernel", "fused_backward_kernel", "segment_reduce_kernel",
                   "segment_reduce_half_kernel", "fused_forward2_kernel", "dma_walk_kernel",
                   "fused_math_only_kernel", "loss_track_tile_kernel", "loss_map_tile_kernel",
-                  "loss_reduce_kernel")
+                  "loss_reduce_kernel", "project_fwd_kernel", "project_bwd_kernel")
 
 
 def port_launches_seen(events) -> int:

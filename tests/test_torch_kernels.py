@@ -35,7 +35,19 @@ the closed form in float32, on test_torch_loss.py's frames: the loss within
 in float32, the mask is the same arithmetic), and equal bit for bit across
 two launches (fixed-order sums). The generic route's first tracking
 gradient (q, t) through K1, K2, K3 and the loss kernel is held to the same
-route on the plain versions within 1e-5 (fault 9's split).
+route on the plain versions within 1e-5 (fault 9's split). The projection
+kernels (csrc/projection.cu), on test_torch_projection_kernel.py's
+families: the forward equal to `project` bit for bit, at an identity w2c
+and at a general one (the kernel rounds the view matmul and the quaternion
+norms as PyTorch's kernels do on the card), the backward against
+project_backward_plain in float32 with tracking's and mapping's gradients
+and cotangents at any strides, each column within 1e-5 of its largest (an
+isotropic map's quaternion gradient is zero in exact arithmetic, so both
+are rounding there: under 1e-5 of the log-scale gradient's largest; an
+anisotropic map's quaternion and log-scale columns within 1e-4, float32
+cancellation in the covariance's chain, 2e-5 to 4e-5 from float64 on
+either side), two launches equal bit for bit; the generic render launches
+both, the fused mapping render neither.
 """
 import numpy as np
 import pytest
@@ -47,6 +59,8 @@ from splatam_tpu_torch.core.gaussians import GaussianMap
 from splatam_tpu_torch.render import api, binning, composite, fused_iso, probes
 from splatam_tpu_torch.scripts import scene
 from splatam_tpu_torch.slam import steps
+from splatam_tpu_torch.render import projection
+import test_torch_projection_kernel as P
 from test_torch_loss import _frame as loss_frame, _pcfg as loss_pcfg
 from test_torch_cull import (FAMILIES, H as ROWS_H, W as ROWS_W, WORLD_FINITE, _family,
                              _world_family)
@@ -838,3 +852,77 @@ def test_the_tracking_gradient_through_k1_k2_k3_is_its_plain_routes(cuda, seed):
     plain = split.program_side(cap, "plain32")["grads"]
     gaps = split.leaf_errors(kernels, plain)
     assert max(gaps.values()) < 1e-5, gaps
+
+
+def _card_case(device, family: str, cols: int, general: bool, n: int = 20000, seed: int = 0):
+    f = P._family(family, cols, seed=seed, n=n)
+    f["w2c"] = P._w2c(general, seed)
+    t = P._torch(f, torch.float32, device)
+    w2c = tuple(tuple(float(v) for v in row) for row in f["w2c"])
+    return t, w2c, projection.project_consts(w2c, P.FX, P.FY, P.CX, P.CY, P.W, P.H)
+
+
+@pytest.mark.parametrize("cols", [1, 3])
+@pytest.mark.parametrize("general", [False, True], ids=["identity", "general"])
+def test_forward_kernel_equals_project_on_the_card(cuda, cols, general):
+    t, w2c, consts = _card_case(cuda, "random", cols, general)
+    got, got_aux = projection.project_forward(t["means"], t["quats"], t["logit"], t["log_scales"],
+                                              t["active"], consts)
+    quats, logit, scales = api._prep_gaussians(t["quats"], t["logit"], t["log_scales"])
+    ref, ref_aux = projection.project(t["means"], quats, logit, scales, t["active"],
+                                      torch.tensor(w2c, dtype=torch.float32, device=cuda),
+                                      P.FX, P.FY, P.CX, P.CY, P.W, P.H)
+    for a, b in zip((*got, *got_aux), (*ref, *ref_aux)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cols", [1, 3])
+@pytest.mark.parametrize("needs", [P.TRACKING, P.MAPPING], ids=["tracking", "mapping"])
+def test_backward_kernel_matches_the_twin_on_the_card(cuda, cols, needs):
+    t, w2c, consts = _card_case(cuda, "random", cols, True, seed=1)
+    cot = P._cot(t["means"].shape[0], 6, torch.float32, cuda)
+    # column slices and an expanded tensor, as autograd hands them over
+    wide = torch.cat([cot[0], cot[2], cot[3][:, None]], 1)
+    strided = [wide[:, 0:2], cot[1].sum().expand(t["means"].shape[0]), wide[:, 2:5], wide[:, 5]]
+    for c in (cot, strided, [cot[0], None, None, None]):
+        got = projection.project_backward(t["means"], t["quats"], t["logit"], t["log_scales"],
+                                          consts, c, needs)
+        ref = projection.project_backward_plain(
+            [None if x is None else x.contiguous() for x in c], t["means"], t["quats"],
+            t["logit"], t["log_scales"], torch.tensor(w2c, dtype=torch.float32, device=cuda),
+            P.FX, P.FY, P.CX, P.CY, P.W, P.H, needs=needs)
+        P._close_grads(got, ref, 1e-5, cols, tol_cov=1e-4)
+        again = projection.project_backward(t["means"], t["quats"], t["logit"],
+                                            t["log_scales"], consts, c, needs)
+        assert all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_renders_launch_the_projection_kernels_where_they_project(cuda):
+    from splatam_tpu_torch.core.gaussians import GaussianMap
+
+    t, _, _ = _card_case(cuda, "random", 1, False, n=5000, seed=2)
+    cam = Camera(height=P.H, width=P.W, fx=P.FX, fy=P.FY, cx=P.CX, cy=P.CY)
+    gm = GaussianMap(means3d=t["means"], rgb_colors=torch.rand_like(t["means"]),
+                     unnorm_rotations=t["quats"], logit_opacities=t["logit"],
+                     log_scales=t["log_scales"], active=t["active"])
+    leaves = [x.clone().requires_grad_(True) for x in (gm.means3d, gm.rgb_colors,
+                                                        gm.unnorm_rotations,
+                                                        gm.logit_opacities, gm.log_scales)]
+    f0, b0 = projection.project_forward.launches, projection.project_backward.launches
+    out = api.render_rgbd_sil(cam, *leaves, gm.active)
+    (out.im.sum() + out.depth.sum() + out.silhouette.sum()).backward()
+    assert (projection.project_forward.launches - f0, projection.project_backward.launches - b0
+            ) == (1, 1)
+    assert all(x.grad is not None and bool(torch.isfinite(x.grad).all()) for x in leaves)
+
+    ps = api.compute_pair_structure(cam, gm.means3d, gm.unnorm_rotations, gm.logit_opacities,
+                                    gm.log_scales, gm.active,
+                                    world_rows8=fused_iso.pack_world8(
+                                        gm.means3d, gm.logit_opacities, gm.log_scales,
+                                        gm.rgb_colors, gm.active))
+    f0, b0 = projection.project_forward.launches, projection.project_backward.launches
+    q = torch.tensor([1.0, 0.0, 0.0, 0.0], device=cuda)
+    out = api.render_rgbd_sil_mapping_fused(cam, ps, leaves[0], leaves[1], leaves[3], leaves[4],
+                                            gm.active, q, torch.zeros(3, device=cuda))
+    out.im.sum().backward()
+    assert (projection.project_forward.launches, projection.project_backward.launches) == (f0, b0)
