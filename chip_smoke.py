@@ -235,6 +235,8 @@ import tempfile
 import time
 from types import SimpleNamespace
 
+from splatam_tpu_torch import kernels
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FRAMES = 4  # path 1
 FRAMES_GENERIC = 3  # paths 2 and 3
@@ -263,111 +265,9 @@ PARAM_KEYS = ("means3D", "rgb_colors", "unnorm_rotations", "logit_opacities", "l
               "gt_w2c_all_frames", "keyframe_time_indices")
 HEIGHT, WIDTH = 680, 1200
 
-# name -> (TPU kernel it replaces, CUDA source); segment_reduce11 is K3
-# instantiated at the generic path's 11 columns.
-KERNELS = {
-    "composite_forward": (
-        "splatam_tpu/render/pallas/composite_pallas.py:288",
-        "splatam_tpu_torch/csrc/composite_forward.cu"),
-    "composite_backward": (
-        "splatam_tpu/render/pallas/composite_pallas.py:518",
-        "splatam_tpu_torch/csrc/composite_backward.cu"),
-    "fused_forward": (
-        "splatam_tpu/render/pallas/fused_iso.py:311",
-        "splatam_tpu_torch/csrc/fused_forward.cu"),
-    "fused_backward": (
-        "splatam_tpu/render/pallas/fused_iso.py:632",
-        "splatam_tpu_torch/csrc/fused_backward.cu"),
-    "segment_reduce": (
-        "splatam_tpu/render/pallas/composite_pallas.py:615",
-        "splatam_tpu_torch/csrc/segment_reduce.cu"),
-    "segment_reduce11": (
-        "splatam_tpu/render/pallas/composite_pallas.py:615",
-        "splatam_tpu_torch/csrc/segment_reduce.cu"),
-    "fwd2": ("scripts/probe_unroll.py:237", "splatam_tpu_torch/csrc/fused_probes.cu"),
-    "dma_only": ("scripts/probe_dma.py:147", "splatam_tpu_torch/csrc/fused_probes.cu"),
-    "dma_b2": ("scripts/probe_dma.py:173", "splatam_tpu_torch/csrc/fused_probes.cu"),
-    "dma_b4": ("scripts/probe_dma.py:173", "splatam_tpu_torch/csrc/fused_probes.cu"),
-    "math_only": ("scripts/probe_dma.py:290", "splatam_tpu_torch/csrc/fused_probes.cu"),
-    # get_loss's loss and gradient, which the JAX package leaves to XLA
-    "loss_map": ("none (XLA fuses splatam_tpu/slam/steps.py get_loss)",
-                 "splatam_tpu_torch/csrc/loss.cu"),
-    "loss_track": ("none (XLA fuses splatam_tpu/slam/steps.py get_loss)",
-                   "splatam_tpu_torch/csrc/loss.cu"),
-    # the generic render's projection and its gradient, which the JAX
-    # package leaves to XLA and jax.vjp
-    "project_forward": ("none (XLA fuses splatam_tpu/render/projection.py project)",
-                        "splatam_tpu_torch/csrc/projection.cu"),
-    "project_backward": ("none (jax.vjp of splatam_tpu/render/projection.py project)",
-                         "splatam_tpu_torch/csrc/projection.cu"),
-}
-# K1 and K2 at every other channel count (1-10, as the TPU kernels take: the
-# SLAM loop's five are the rows above), K3 at every other width of the
-# generic render's rows (6 + ch): splatam_tpu_torch/scripts/harness.py WIDE.
-CHANNELS = range(1, 11)
-K1_WIDE = tuple(f"composite_forward_ch{c}" for c in CHANNELS if c != 5)
-K2_WIDE = tuple(f"composite_backward_ch{c}" for c in CHANNELS if c != 5)
-K3_WIDE = tuple(f"segment_reduce{k}" for k in range(7, 17) if k not in (8, 11))
-WIDE = K1_WIDE + K2_WIDE + K3_WIDE
-for _name in WIDE:
-    KERNELS[_name] = KERNELS[_name.partition("_ch")[0] if "_ch" in _name else "segment_reduce"]
-
-
-def instance_name(kind: str, n: int) -> str:
-    """The kernel name of K1 or K2 ("composite_forward", "composite_backward")
-    at n channels, or of K3 ("segment_reduce") at n columns."""
-    if kind == "segment_reduce":
-        return {8: "segment_reduce", 11: "segment_reduce11"}.get(n, f"segment_reduce{n}")
-    return kind if n == 5 else f"{kind}_ch{n}"
-
-
-PROBES = ("fwd2", "dma_only", "dma_b2", "dma_b4", "math_only")
 PROBE_N = 1272155  # the probe scripts' default map
 PROBE_LOGITS = (-2.0, 1.0)  # probe_unroll's default (walks to the tile's end), saturating
 PROFILE_N = 950272  # scripts/profile_map_ablate.py:22, about path 1's steady map
-# Each output row (an image channel, a gradient column) is held to its
-# plain version within TOL of that row's own largest value. Images:
-# the forward kernels round like their plain versions (-fmad=false, NDC
-# terms from the host), so 1e-5 leaves room only for expf/division of two
-# libraries; K1 and K4 must equal their plain versions bit for bit besides
-# (measured so on an H100 at every scene; whether the probes' images do is
-# printed).
-# Per-pair gradients (K5, K2): the 256 per-pixel terms are summed by warp
-# shuffles (in both the reduce-scatter tree of reduce_scatter16: lanes
-# halved by xor 16, 8, 4, 2, 1) and then over the warps that touched the
-# pair, in warp order, instead of in pixel order, 1e-4.
-# Per-Gaussian sums (K3 at 8 and 11 columns, and index_add_ beside K3): K3
-# adds a Gaussian's few rows in slot order, the plain version and
-# index_add_ in another order, 1e-5. The probes: fwd2 must equal K4 bit for bit
-# (the same arithmetic on the same pairs in the same order), and its plain
-# version, math_only's and the lane sums of the dma walks (per lane, the
-# same float32 sums in another order) within 1e-5. The same at every scene.
-TOL = {"composite_forward": 1e-5, "composite_backward": 1e-4, "fused_forward": 1e-5,
-       "fused_backward": 1e-4, "segment_reduce": 1e-5, "segment_reduce11": 1e-5,
-       "fwd2": 1e-5, "dma_only": 1e-5, "dma_b2": 1e-5, "dma_b4": 1e-5, "math_only": 1e-5}
-TOL.update({n: TOL["composite_forward"] for n in K1_WIDE})
-TOL.update({n: TOL["composite_backward"] for n in K2_WIDE})
-TOL.update({n: TOL["segment_reduce"] for n in K3_WIDE})
-IMAGES = ("composite_forward", "fused_forward", "fwd2", "math_only", *K1_WIDE)  # n_contrib exact
-BIT_EQUAL_TO_PLAIN = ("composite_forward", "fused_forward", *K1_WIDE)  # every row
-# Kernels whose sums have a fixed order: two launches must be equal bit for bit.
-DETERMINISTIC = ("composite_backward", "fused_backward", "segment_reduce", "segment_reduce11",
-                 *K2_WIDE, *K3_WIDE)
-# The library entries that report what the compiler gave K1, K2, K3, K4 and K5,
-# and K1, K2 and K3 at every width.
-KERNEL_INFO = {"composite_forward": ("composite_forward_info", 5),
-               "composite_backward": ("composite_backward_info", 5),
-               "fused_forward": ("fused_forward_info",),
-               "fused_backward": ("fused_backward_info",),
-               "segment_reduce": ("segment_reduce_info", 8),
-               "segment_reduce11": ("segment_reduce_info", 11),
-               "loss_map": ("loss_info", 1), "loss_track": ("loss_info", 0),
-               "project_forward": ("project_info", 0), "project_backward": ("project_info", 1),
-               **{instance_name(kind, n): (f"{kind}_info", n)
-                  for kind in ("composite_forward", "composite_backward") for n in CHANNELS
-                  if n != 5},
-               **{instance_name("segment_reduce", k): ("segment_reduce_info", k)
-                  for k in range(7, 17) if k not in (8, 11)}}
 # The SLAM loop's six kernels (check_trained_map's names for path 10's map).
 LOOP_KERNELS = ("composite_forward", "composite_backward", "fused_forward", "fused_backward",
                 "segment_reduce", "segment_reduce11")
@@ -377,24 +277,24 @@ LOOP_KERNELS = ("composite_forward", "composite_backward", "fused_forward", "fus
 # the fused paths checked for it (path 1, the probes).
 GENERIC = (("composite_forward", "composite_backward", "segment_reduce11", "project_forward",
             "project_backward"),
-           ("fused_forward", "fused_backward", "segment_reduce", *PROBES))
+           ("fused_forward", "fused_backward", "segment_reduce", *kernels.PROBES))
+# the fused route (rebin 8, isotropic map): K4, K5 and K3-8 in the phases, K1 beside
+FUSED = (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
+         ("composite_backward", "segment_reduce11", *kernels.PROBES))
 EVAL = (("composite_forward",),
         ("composite_backward", "fused_forward", "fused_backward", "segment_reduce",
-         "segment_reduce11", *PROBES))
+         "segment_reduce11", *kernels.PROBES))
 PATH_KERNELS = {
     "path 1": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce",
                 "loss_track", "loss_map", "project_forward"),
-               ("composite_backward", "segment_reduce11", "project_backward", *PROBES)),
+               ("composite_backward", "segment_reduce11", "project_backward", *kernels.PROBES)),
     "path 2": GENERIC,
     "path 3": GENERIC,
-    "path 4": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
-               ("composite_backward", "segment_reduce11", *PROBES)),
+    "path 4": FUSED,
     "path 4 eval": EVAL,
     # the micro-gauntlets run path 1's routing (rebin 8, isotropic) at 160x120
-    "path 13 clean": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
-                      ("composite_backward", "segment_reduce11", *PROBES)),
-    "path 13 scan": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
-                     ("composite_backward", "segment_reduce11", *PROBES)),
+    "path 13 clean": FUSED,
+    "path 13 scan": FUSED,
     # the iPhone config's generic render (rebin_every=1) every iteration
     "path 14": GENERIC,
     "path 5": GENERIC,
@@ -406,8 +306,8 @@ PATH_KERNELS = {
     "path 9": GENERIC,
     "path 10": (("composite_forward", "composite_backward", "segment_reduce11", "fused_forward",
                  "fused_backward", "project_forward", "project_backward"),
-                ("segment_reduce", *PROBES)),
-    "probes": (("fused_forward", *PROBES),
+                ("segment_reduce", *kernels.PROBES)),
+    "probes": (("fused_forward", *kernels.PROBES),
                ("composite_forward", "composite_backward", "fused_backward", "segment_reduce",
                 "segment_reduce11", "project_forward", "project_backward")),
     # the viewers render through K1 alone (five channels: r, g, b, z, z^2)
@@ -418,39 +318,31 @@ PATH_KERNELS = {
     # profile_sharded (fused tracking and mapping, no densify); the
     # ablation (fused mapping, generic forward); the saturation probe (path
     # 1's loop, then one K1); the gather comparison (K4 and K5 in both modes)
-    "path 15 unbanded": (("composite_forward", "fused_forward", "fused_backward",
-                          "segment_reduce"), ("composite_backward", "segment_reduce11", *PROBES)),
-    "path 15 bands": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
-                      ("composite_backward", "segment_reduce11", *PROBES)),
+    "path 15 unbanded": FUSED,
+    "path 15 bands": FUSED,
     "path 15 dryrun": (("composite_forward", "composite_backward", "segment_reduce11",
                         "fused_forward", "fused_backward", "project_forward", "project_backward"),
-                       ("segment_reduce", *PROBES)),
+                       ("segment_reduce", *kernels.PROBES)),
     "path 15 profile_sharded": (("fused_forward", "fused_backward", "segment_reduce"),
                                 ("composite_forward", "composite_backward", "segment_reduce11",
-                                 *PROBES)),
-    "path 15 profile_map_ablate": (("composite_forward", "fused_forward", "fused_backward",
-                                    "segment_reduce"),
-                                   ("composite_backward", "segment_reduce11", *PROBES)),
-    "path 15 probe_saturation": (("composite_forward", "fused_forward", "fused_backward",
-                                  "segment_reduce"),
-                                 ("composite_backward", "segment_reduce11", *PROBES)),
+                                 *kernels.PROBES)),
+    "path 15 profile_map_ablate": FUSED,
+    "path 15 probe_saturation": FUSED,
     "path 15 exp_gather": (("fused_forward", "fused_backward"),
                            ("composite_forward", "composite_backward", "segment_reduce",
-                            "segment_reduce11", *PROBES)),
+                            "segment_reduce11", *kernels.PROBES)),
     # path 16: the bench at its defaults is path 1's routing, with and
     # without the cull; the variants' renders run all three routes; the
     # entry check renders through K1 alone
-    "path 16 bench": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
-                      ("composite_backward", "segment_reduce11", *PROBES)),
-    "path 16 bench cull": (("composite_forward", "fused_forward", "fused_backward",
-                            "segment_reduce"), ("composite_backward", "segment_reduce11", *PROBES)),
+    "path 16 bench": FUSED,
+    "path 16 bench cull": FUSED,
     "path 16 variants": (("composite_forward", "composite_backward", "segment_reduce11",
                           "fused_forward", "fused_backward", "segment_reduce", "project_forward",
-                          "project_backward"), PROBES),
+                          "project_backward"), kernels.PROBES),
     "path 16 entry": EVAL,
 }
 # No path but path 11 launches K1, K2 or K3 at another width.
-PATH_KERNELS = {k: (must, (*never, *WIDE)) for k, (must, never) in PATH_KERNELS.items()}
+PATH_KERNELS = {k: (must, (*never, *kernels.WIDE)) for k, (must, never) in PATH_KERNELS.items()}
 # Path 4's K1 launches, exactly: the progress report at frame 0, at each
 # tracked frame densification and the tracking-loss panel (one render at the
 # tracked pose), and the final eval of every frame (eval_every 1).
@@ -611,8 +503,8 @@ def probe_cases(ps, pose, w: int, h: int):
     w8, ts = ps.world8, ps.tile_start
     cases = [("fwd2", lambda: probes.fwd2(w8, pose, ts, w, h),
               lambda: probes.fwd2_plain(w8, pose, ts, w, h))]
-    for name, blocks in (("dma_only", 1), ("dma_b2", 2), ("dma_b4", 4)):
-        cases.append((name, lambda b=blocks: probes.dma_walk(w8, ts, b),
+    for blocks, k in kernels.of("dma_walk").items():
+        cases.append((k.name, lambda b=blocks: probes.dma_walk(w8, ts, b),
                       lambda b=blocks: probes.dma_walk_plain(w8, ts, b)))
     cases.append(("math_only", lambda: probes.math_only(w8, pose, ts, w, h),
                   lambda: probes.math_only_plain(w8, pose, ts, w, h)))
@@ -705,18 +597,19 @@ def check_cases(cases, label: str, equal_to: dict | None = None,
             same = torch.equal(got, equal_to[name]())
             ok = ok and same
             extra += f" equal_to_K4={same}"
-        if name in IMAGES:
+        k = kernels.KERNELS[name]
+        if k.image:
             same = torch.equal(got, ref)
-            ok = ok and (same or name not in BIT_EQUAL_TO_PLAIN)
+            ok = ok and (same or not k.bit_equal)
             extra += f" equal_to_plain={same}"
             moved = int((got[-1] != ref[-1]).sum())
             ok = ok and moved == 0
             extra += f" n_contrib_moved={moved}"
             got, ref = got[:-1], ref[:-1]
         err, rels = rel_err(got, ref)
-        ok = ok and max(rels) <= TOL[name]
+        ok = ok and max(rels) <= k.tol
         print(f"[{label}] {name}: max_abs_err={err:.3e} worst_row_rel={max(rels):.1e} "
-              f"tol={TOL[name]:.0e}{extra} {'ok' if ok else 'FAIL'}", flush=True)
+              f"tol={k.tol:.0e}{extra} {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"{name} disagrees with its plain version ({label})")
         errs[name] = err
@@ -724,12 +617,12 @@ def check_cases(cases, label: str, equal_to: dict | None = None,
 
 
 def check_repeat(cases, label: str) -> None:
-    """The DETERMINISTIC kernels launched twice on the same inputs must
-    give results equal bit for bit."""
+    """The deterministic kernels (splatam_tpu_torch/kernels.py) launched
+    twice on the same inputs must give results equal bit for bit."""
     import torch
 
     for name, kernel, _ in cases:
-        if name in DETERMINISTIC:
+        if kernels.KERNELS[name].deterministic:
             same = torch.equal(kernel(), kernel())
             print(f"[{label}] {name}: two launches equal={same}", flush=True)
             if not same:
@@ -741,8 +634,10 @@ def report_kernel_info() -> None:
     of K1, K2, K3, K4 and K5, from the CUDA runtime (render/_cuda.kernel_info)."""
     from splatam_tpu_torch.render import _cuda
 
-    for name, (entry, *args) in KERNEL_INFO.items():
-        info = _cuda.kernel_info(entry, *args)
+    for name, k in kernels.KERNELS.items():
+        if k.info is None:
+            continue
+        info = _cuda.kernel_info(*k.info)
         print(f"kernel {name}: {info.registers} registers, {info.local_bytes} local bytes per "
               f"thread, {info.blocks_per_sm} blocks of its launch per SM", flush=True)
 
@@ -798,7 +693,7 @@ def library_index_add(name: str, dpair, s) -> float:
 
     err, rels = rel_err(call(), composite.segment_reduce(dpair, s.dst, s.offsets, s.counts))
     ms = min(event_ms(call, 20, 3), event_ms(call, 20, 3))
-    ok = max(rels) <= TOL[name]
+    ok = max(rels) <= kernels.KERNELS[name].tol
     print(f"library {name}: index_add_ {ms:.3f} ms, vs K3 max_abs_err={err:.3e} "
           f"worst_col_rel={max(rels):.1e} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
@@ -987,8 +882,8 @@ def probe_work(ps, pose, w: int, h: int) -> dict:
     work = {"fused_forward": k4, "fwd2": k4,
             "math_only": (staged * 32 + B.nbytes(pose, ts) + image,
                           B.forward_walk_ops(first) + B.PROJ_OPS * staged)}
-    for name, blocks in (("dma_only", 1), ("dma_b2", 2), ("dma_b4", 4)):
-        work[name] = (walk_bytes, int((pos % (blocks * probes.C) < probes.C).sum()))
+    for blocks, k in kernels.of("dma_walk").items():
+        work[k.name] = (walk_bytes, int((pos % (blocks * probes.C) < probes.C).sum()))
     return work
 
 
@@ -1071,8 +966,6 @@ def drive_path(name: str, config: dict, frames: int, device, k2_per_frame=None):
     from splatam_tpu_torch.slam.config import seed_everything
     from splatam_tpu_torch.slam.pipeline import SLAMRuntime, run_frame
 
-    from splatam_tpu_torch.scripts.harness import launch_counts, reset_launch_counts
-
     must, never = PATH_KERNELS[name]
     seed_everything(0)
     rt = SLAMRuntime(config, device)
@@ -1081,7 +974,7 @@ def drive_path(name: str, config: dict, frames: int, device, k2_per_frame=None):
           f"{'isotropic' if rt.isotropic else 'anisotropic'} map, {n_start} Gaussians at start",
           flush=True)
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    kernels.reset_launch_counts()
     k2_before = 0
     for i in range(frames):
         torch.cuda.synchronize()
@@ -1089,7 +982,7 @@ def drive_path(name: str, config: dict, frames: int, device, k2_per_frame=None):
         run_frame(rt, i)
         torch.cuda.synchronize()
         dt = time.time() - t0
-        launches = launch_counts()
+        launches = kernels.launch_counts()
         print(f"{name} frame {i}: {dt:.3f} s, n_gaussians={rt.gm.num_active()}, "
               f"launches={launches}, "
               f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
@@ -1104,7 +997,7 @@ def drive_path(name: str, config: dict, frames: int, device, k2_per_frame=None):
         k2_before = launches["composite_backward"]
         if k2_per_frame is not None and k2 != k2_per_frame[min(i, 1)]:
             fail(f"{name} frame {i}: {k2} K2 launches, the config implies {k2_per_frame[min(i, 1)]}")
-    launches = launch_counts()
+    launches = kernels.launch_counts()
     if not (np.isfinite(rt.cam_rots[:frames]).all() and np.isfinite(rt.cam_trans[:frames]).all()):
         fail(f"{name}: non-finite poses")
     if not rt.gm.num_active() > n_frame0:
@@ -1150,7 +1043,6 @@ def run_probes(device):
 
     from splatam_tpu_torch.render import fused_iso
     from splatam_tpu_torch.scripts import probe_dma, probe_unroll, scene
-    from splatam_tpu_torch.scripts.harness import launch_counts, reset_launch_counts
 
     must, never = PATH_KERNELS["probes"]
     launches, kept = {}, None
@@ -1159,10 +1051,10 @@ def run_probes(device):
         ps, pose = scene.fused_inputs(gm, q, t, cam)
         del gm
         note = f"opacity_logit={logit}"
-        reset_launch_counts()
+        kernels.reset_launch_counts()
         probe_unroll.run(ps, pose, WIDTH, HEIGHT, device, note=note)
         probe_dma.run(ps, pose, WIDTH, HEIGHT, device, note=note)
-        for name, n in launch_counts().items():
+        for name, n in kernels.launch_counts().items():
             launches[name] = launches.get(name, 0) + n
 
         label = f"probe map, {PROBE_N} Gaussians, {ps.n_pairs} pairs, logit {logit}"
@@ -1174,7 +1066,7 @@ def run_probes(device):
         errs = check_cases(cases, label, equal_to={"fwd2": k4})
         times = time_turns([("fused_forward", k4, None), *cases])
         bounds = report_bounds(probe_work(ps, pose, WIDTH, HEIGHT), times, label)
-        for name in PROBES:
+        for name in kernels.PROBES:
             print(f"[{label}] {name} / K4 time: {times[name][0] / times['fused_forward'][0]:.3f}",
                   flush=True)
         if kept is None:
@@ -1252,11 +1144,12 @@ def check_loss_kernel(final_map, final_frame) -> tuple:
         err, rels = rel_err(grad, ref_grad)
         again = fused_loss.loss_terms(*args)
         same = all(torch.equal(a, b) for a, b in zip(again, (res, grad, gscale)))
-        ok = (loss_rel <= 1e-5 and max(rels) <= 1e-5 and float(res[3]) == float(ref_res[3])
+        tol = kernels.KERNELS[name].tol
+        ok = (loss_rel <= tol and max(rels) <= tol and float(res[3]) == float(ref_res[3])
               and torch.equal(gscale, ref_gscale) and same)
         print(f"[{label}] {name}: loss {float(res[0]):.6f} (plain {float(ref_res[0]):.6f}, "
               f"rel {loss_rel:.1e}), mask {int(res[3])}, max_abs_err={err:.3e} "
-              f"worst_plane_rel={max(rels):.1e} tol=1e-05 repeat_equal={same} "
+              f"worst_plane_rel={max(rels):.1e} tol={tol:.0e} repeat_equal={same} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"{name} disagrees with its plain version ({label})")
@@ -1371,6 +1264,7 @@ def check_projection(gm, q, t, cam, label: str) -> tuple:
     cot = [torch.randn(shape, device=means_cam.device, generator=gen)
            for shape in ((n, 2), (n,), (n, 3), (n,))]
     errs = {"project_forward": max(float((a - b).abs().max()) for a, b in zip(got, ref))}
+    tol = kernels.KERNELS["project_backward"].tol
     for phase, needs in (("tracking", (True, False, False, False)), ("mapping", (True,) * 4)):
         got = projection.project_backward(*leaves, consts, cot, needs)
         ref = projection.project_backward_plain(cot, *leaves, w2c, *intr, needs=needs)
@@ -1386,23 +1280,23 @@ def check_projection(gm, q, t, cam, label: str) -> tuple:
             else:
                 rel = max(rel_err(g.reshape(n, -1), r.reshape(n, -1))[1])
             rows.append(f"{('means', 'quats', 'logits', 'log_scales')[i]} {rel:.1e}")
-            ok = ok and rel <= 1e-5 and bool(torch.isfinite(g).all())
+            ok = ok and rel <= tol and bool(torch.isfinite(g).all())
             errs["project_backward"] = max(errs.get("project_backward", 0.0),
                                            float((g - r).abs().max()))
         print(f"[{label}] project_backward ({phase}): worst column rel {', '.join(rows)} "
-              f"tol=1e-05 repeat_equal={same} {'ok' if ok else 'FAIL'}", flush=True)
+              f"tol={tol:.0e} repeat_equal={same} {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"project_backward disagrees with project_backward_plain ({label}, {phase})")
 
     mapping = (True,) * 4
-    kernels = {"project_forward": lambda: projection.project_forward(*leaves, gm.active, consts),
+    calls = {"project_forward": lambda: projection.project_forward(*leaves, gm.active, consts),
                "project_backward": lambda: projection.project_backward(*leaves, consts, cot,
                                                                        mapping)}
     times = time_turns([
-        ("project_forward", kernels["project_forward"], lambda: plain_forward(*leaves)),
-        ("project_backward", kernels["project_backward"],
+        ("project_forward", calls["project_forward"], lambda: plain_forward(*leaves)),
+        ("project_backward", calls["project_backward"],
          lambda: projection.project_backward_plain(cot, *leaves, w2c, *intr))])
-    for name, fn in kernels.items():  # the kernel's own time, without the host's launch gaps
+    for name, fn in calls.items():  # the kernel's own time, without the host's launch gaps
         busy = device_busy(fn, means_cam.device, 20)
         print(f"[{label}] {name}: device time {busy.ms:.4f} ms a call (profiler, "
               f"verified={busy.verified})", flush=True)
@@ -1531,7 +1425,6 @@ def drive_slam(work: str, device, card: str) -> dict:
     from splatam_tpu_torch.eval.evaluate import eval_sequence
     from splatam_tpu_torch.io.ply import load_ply
     from splatam_tpu_torch.scripts import export_ply
-    from splatam_tpu_torch.scripts.harness import launch_counts, reset_launch_counts
     from splatam_tpu_torch.slam.config import seed_everything
     from splatam_tpu_torch.slam.pipeline import rgbd_slam
 
@@ -1544,12 +1437,12 @@ def drive_slam(work: str, device, card: str) -> dict:
     # (a) the run
     seed_everything(0)
     torch.cuda.synchronize()
-    reset_launch_counts()
+    kernels.reset_launch_counts()
     t0 = time.time()
     metrics = rgbd_slam(copy.deepcopy(config), device)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches["path 4"] = launch_counts()
+    launches["path 4"] = kernels.launch_counts()
     check_launches("path 4", launches["path 4"])
     if launches["path 4"]["composite_forward"] != PATH4_K1:
         fail(f"path 4: {launches['path 4']['composite_forward']} K1 launches, expected {PATH4_K1}")
@@ -1573,14 +1466,14 @@ def drive_slam(work: str, device, card: str) -> dict:
     cfg_m = config["mapping"]
     ds = dataset_from_config(config["data"])
     torch.cuda.synchronize()
-    reset_launch_counts()
+    kernels.reset_launch_counts()
     t0 = time.time()
     again = eval_sequence(ds, params, FRAMES_SLAM, os.path.join(run, "eval_again"),
                           cfg_m["sil_thres"], cfg_m["num_iters"], cfg_m["add_new_gaussians"],
                           eval_every=config["eval_every"], device=device)
     torch.cuda.synchronize()
     print(f"path 4 eval: {time.time() - t0:.3f} s for {FRAMES_SLAM} frames", flush=True)
-    launches["path 4 eval"] = launch_counts()
+    launches["path 4 eval"] = kernels.launch_counts()
     check_launches("path 4 eval", launches["path 4 eval"])
     same = again == {k: v for k, v in metrics.items() if k != "runtime"}
     print(f"path 4 eval of params.npz equal to the run's bit for bit: {same}", flush=True)
@@ -1596,11 +1489,11 @@ def drive_slam(work: str, device, card: str) -> dict:
         shutil.copy(os.path.join(run, name), _run_dir(resume))
     seed_everything(0)
     torch.cuda.synchronize()
-    reset_launch_counts()
+    kernels.reset_launch_counts()
     t0 = time.time()
     resumed = rgbd_slam(resume, device)
     torch.cuda.synchronize()
-    launches["path 4 resume"] = launch_counts()
+    launches["path 4 resume"] = kernels.launch_counts()
     check_launches("path 4", launches["path 4 resume"], "path 4 resume")
     rparams = _load_params(os.path.join(_run_dir(resume), "params.npz"), "path 4 resume")
     if not (np.isfinite(rparams["cam_unnorm_rots"]).all()
@@ -1672,7 +1565,7 @@ CLI = ("import importlib, json, sys\n"
        "import torch\n"
        "out, sys.argv = sys.argv[1], sys.argv[2:]\n"
        "metrics = importlib.import_module(sys.argv[0]).main()\n"
-       "from splatam_tpu_torch.scripts.harness import launch_counts\n"
+       "from splatam_tpu_torch.kernels import launch_counts\n"
        "peak = torch.cuda.max_memory_allocated() / 2**30\n"
        "with open(out, 'w') as f:\n"
        "    json.dump({'launches': launch_counts(), 'metrics': metrics, 'peak_gib': peak}, f,\n"
@@ -2049,7 +1942,6 @@ def drive_generic(m) -> tuple:
     import torch
 
     from splatam_tpu_torch.render import api
-    from splatam_tpu_torch.scripts.harness import launch_counts, reset_launch_counts
 
     cam, v = m.cam, m.view
     total = {}
@@ -2059,20 +1951,20 @@ def drive_generic(m) -> tuple:
                   for a in (m.means, m.colors[label], m.rots, v.logit_opacities, v.log_scales)]
         w = torch.randn((rows, cam.height, cam.width), device=m.z.device, generator=m.gen)
         torch.cuda.synchronize()
-        reset_launch_counts()
+        kernels.reset_launch_counts()
         t0 = time.time()
         img, radii, n_pairs = api.render_gaussians(cam, *leaves, v.active,
                                                    append_depth_channels=append)
         grads = torch.autograd.grad((img * w).sum(), leaves)
         torch.cuda.synchronize()
         ms = (time.time() - t0) * 1e3
-        launches = launch_counts()
+        launches = kernels.launch_counts()
         for k, c in launches.items():
             total[k] = total.get(k, 0) + c
         moved = {k: c for k, c in launches.items() if c}
-        want = {instance_name("composite_forward", ch): 1,
-                instance_name("composite_backward", ch): 1,
-                instance_name("segment_reduce", 6 + ch): 1,
+        want = {kernels.of("composite_forward")[ch].name: 1,
+                kernels.of("composite_backward")[ch].name: 1,
+                kernels.of("segment_reduce")[6 + ch].name: 1,
                 "project_forward": 1, "project_backward": 1}
         finite = bool(torch.isfinite(img).all()) and all(bool(torch.isfinite(g).all())
                                                          for g in grads)
@@ -2123,8 +2015,8 @@ def check_generic_kernels(m, label: str) -> tuple:
         state = composite.composite_forward(attrs, b.pair_gauss, b.tile_start, w, h)
         g = torch.randn((ch + 1, h, w), device=attrs.device, generator=m.gen)
         dgen = composite.composite_backward(attrs, b.pair_gauss, b.tile_start, w, h, state, g)
-        names = (instance_name("composite_forward", ch), instance_name("composite_backward", ch),
-                 instance_name("segment_reduce", 6 + ch))
+        names = tuple(kernels.of(kind)[n].name for kind, n in (
+            ("composite_forward", ch), ("composite_backward", ch), ("segment_reduce", 6 + ch)))
         ts, pg = b.tile_start, b.pair_gauss
         cases = [
             (names[0], lambda: composite.composite_forward(attrs, pg, ts, w, h),
@@ -2139,7 +2031,7 @@ def check_generic_kernels(m, label: str) -> tuple:
         case_errs = check_cases(cases, case_label, plain_ms=plain)
         check_repeat(cases, case_label)
         for name, kernel, _ in cases:
-            if name not in WIDE or name in times:
+            if name not in kernels.WIDE or name in times:
                 continue
             errs[name] = case_errs[name]
             ms = min(event_ms(kernel, 20, 3), event_ms(kernel, 20, 3))
@@ -2292,17 +2184,16 @@ def drive_gauntlet(work: str, device, card: str) -> dict:
     import torch
 
     from splatam_tpu_torch.scripts import gauntlet
-    from splatam_tpu_torch.scripts.harness import launch_counts, reset_launch_counts
 
     workdir = os.path.join(work, "gauntlet")
     launches = {}
     for name, micro in gauntlet.MICRO.items():
         label = f"path 13 {name}"
         torch.cuda.synchronize()
-        reset_launch_counts()
+        kernels.reset_launch_counts()
         m = gauntlet.run_micro(name, workdir, device)
         torch.cuda.synchronize()
-        launches[label] = launch_counts()
+        launches[label] = kernels.launch_counts()
         check_launches(label, launches[label])
         report_quality(label, m, card)
         ate = 100 * m["ate_rmse"]
@@ -2368,7 +2259,6 @@ def drive_live(work: str, device, card: str) -> dict:
     from splatam_tpu_torch.eval.ate import evaluate_ate
     from splatam_tpu_torch.live.replay import SampleReader
     from splatam_tpu_torch.scripts import iphone_demo, nerfcapture2dataset
-    from splatam_tpu_torch.scripts.harness import launch_counts, reset_launch_counts
     from splatam_tpu_torch.slam.config import load_experiment_config, seed_everything
     from splatam_tpu_torch.slam.pipeline import _w2c_from_qt
 
@@ -2390,7 +2280,7 @@ def drive_live(work: str, device, card: str) -> dict:
     iphone_demo._step_frame = timed
     seed_everything(config["seed"])
     torch.cuda.synchronize()
-    reset_launch_counts()
+    kernels.reset_launch_counts()
     t0 = time.time()
     try:
         rt = iphone_demo.live_slam(config, device, SampleReader(stream))
@@ -2398,7 +2288,7 @@ def drive_live(work: str, device, card: str) -> dict:
         iphone_demo._step_frame = step
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"path 14": launch_counts()}
+    launches = {"path 14": kernels.launch_counts()}
     check_launches("path 14", launches["path 14"])
     k2 = launches["path 14"]["composite_backward"]
     if k2 != mapping + (n - 1) * (track + mapping):
@@ -2795,7 +2685,6 @@ def drive_bands(work: str, device, final_map, final_frame) -> dict:
     from splatam_tpu_torch.scripts import (
         dryrun_multichip, exp_gather, probe_saturation, profile_map_ablate, profile_sharded,
     )
-    from splatam_tpu_torch.scripts.harness import launch_counts, reset_launch_counts
     from splatam_tpu_torch.slam.pipeline import _w2c_from_qt
 
     t0 = time.time()
@@ -2847,10 +2736,10 @@ def drive_bands(work: str, device, final_map, final_frame) -> dict:
 
     def counted(name, fn):
         t1 = time.time()
-        reset_launch_counts()
+        kernels.reset_launch_counts()
         out = fn()
         torch.cuda.synchronize()
-        launches[name] = launch_counts()
+        launches[name] = kernels.launch_counts()
         check_launches(name, launches[name])
         print(f"{name}: {time.time() - t1:.1f} s", flush=True)
         return out
@@ -2955,7 +2844,7 @@ def variant_renders(view, q, t, cam, opts, cot) -> dict:
     return res, ps_w, ps_m
 
 
-# The kernel whose output each route's rows come from, for its TOL
+# The kernels whose outputs each route's rows come from, for their tolerances
 ROUTE_TOL = {"tracking": ("fused_forward", "fused_backward"),
              "mapping fused": ("fused_forward", "segment_reduce"),
              "generic": ("composite_forward", "segment_reduce11")}
@@ -3037,7 +2926,7 @@ def compare_variant(name: str, got: dict, ref: dict, moved_px, moved_g) -> None:
 
     for route, (img, grads) in got.items():
         rimg, rgrads = ref[route]
-        tol_img, tol_grad = (TOL[k] for k in ROUTE_TOL[route])
+        tol_img, tol_grad = (kernels.KERNELS[k].tol for k in ROUTE_TOL[route])
         keep = (~moved_px).to(img.dtype)
         _, rels = rel_err(img * keep, rimg * keep)
         bits = torch.equal(img, rimg)
@@ -3067,18 +2956,17 @@ def drive_variants(final_map, device) -> dict:
     import torch
 
     from splatam_tpu_torch.render.binning import BinOptions
-    from splatam_tpu_torch.scripts.harness import launch_counts, reset_launch_counts
     from splatam_tpu_torch.slam import steps
 
     view, q, t, cam = final_map
     gen = torch.Generator(device).manual_seed(16)
     cot = torch.randn((6, cam.height, cam.width), device=device, generator=gen)
-    reset_launch_counts()
+    kernels.reset_launch_counts()
     outs, structs = {}, {}
     for name, opts in VARIANTS.items():
         outs[name], *structs[name] = variant_renders(view, q, t, cam, BinOptions(**opts), cot)
     torch.cuda.synchronize()
-    launches = launch_counts()
+    launches = kernels.launch_counts()
     check_launches("path 16 variants", launches)
     n_classic = structs["classic"][1].n_pairs
     for name, opts in VARIANTS.items():
@@ -3125,7 +3013,6 @@ def drive_bench(final_map, device) -> dict:
     import torch
 
     from splatam_tpu_torch.scripts import entry
-    from splatam_tpu_torch.scripts.harness import launch_counts, reset_launch_counts
 
     t0 = time.time()
     launches = {}
@@ -3145,12 +3032,12 @@ def drive_bench(final_map, device) -> dict:
     launches["path 16 variants"] = drive_variants(final_map, device)
     print(f"path 16 (c): {time.time() - t1:.1f} s", flush=True)
 
-    reset_launch_counts()
+    kernels.reset_launch_counts()
     fn, args = entry.entry("cuda")
     with torch.no_grad():
         outs = fn(*args)
     torch.cuda.synchronize()
-    launches["path 16 entry"] = launch_counts()
+    launches["path 16 entry"] = kernels.launch_counts()
     check_launches("path 16 entry", launches["path 16 entry"])
     shapes = [tuple(o.shape) for o in outs]
     finite = all(bool(torch.isfinite(o).all()) for o in outs)
@@ -3278,7 +3165,7 @@ def main() -> None:
     # The probes' rows come from the probe map; K4 keeps its main-path row.
     probe_launches, *probe_rows = run_probes(device)
     for table, probe_table in zip((errs, times, bounds), probe_rows):
-        table.update({name: probe_table[name] for name in PROBES})
+        table.update({name: probe_table[name] for name in kernels.PROBES})
     torch.cuda.empty_cache()
 
     from splatam_tpu_torch.scripts import profile_iter
@@ -3324,11 +3211,12 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     rows = []
-    for name, (replaces, source) in KERNELS.items():
+    for name, k in kernels.KERNELS.items():
         ms, plain_ms = times[name]
         bound, by, share = bounds[name]
-        n = probe_launches[name] if name in PROBES else sum(p[name] for p in launches.values())
-        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+        n = (probe_launches[name] if name in kernels.PROBES
+             else sum(p[name] for p in launches.values()))
+        rows.append({"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
                      "launches": n, "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound, "bound_by": by, "share": share,
                      "library_ms": library.get(name)})

@@ -44,6 +44,7 @@ import time
 import numpy as np
 import torch
 
+from splatam_tpu_torch import kernels
 from splatam_tpu_torch.render import binning
 from splatam_tpu_torch.scripts import harness
 
@@ -131,7 +132,7 @@ def run(env: dict, device: torch.device, workdir: str) -> dict:
     seed_everything(0)
     print(f"device: {harness.describe(device)}", file=sys.stderr)
     rt = SLAMRuntime(config, device)
-    harness.reset_launch_counts()
+    kernels.reset_launch_counts()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     frame_times, all_frame_times = [], []
@@ -162,7 +163,7 @@ def run(env: dict, device: torch.device, workdir: str) -> dict:
         all_frame_times.append(dt)
         if time_idx >= env["warmup"]:
             frame_times.append(dt)
-    print(f"launches: {json.dumps(harness.launch_counts())}", file=sys.stderr)
+    print(f"launches: {json.dumps(kernels.launch_counts())}", file=sys.stderr)
     if device.type == "cuda":
         print(f"peak device memory: {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB",
               file=sys.stderr)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from splatam_tpu_torch import kernels
 from splatam_tpu_torch.core.camera import Camera
 from splatam_tpu_torch.render.api import render_rgbd_sil
 from splatam_tpu_torch.scripts import harness
@@ -46,13 +47,13 @@ def main(argv=None) -> tuple:
     args = ap.parse_args(argv)
     device = harness.resolve_device(args.device, "entry")
     fn, inputs = entry(device)
-    harness.reset_launch_counts()
+    kernels.reset_launch_counts()
     with torch.no_grad():
         outs = fn(*inputs)
     finite = all(bool(torch.isfinite(o).all()) for o in outs)
     print(f"entry on {harness.describe(device)}: im {tuple(outs[0].shape)}, depth "
           f"{tuple(outs[1].shape)}, silhouette {tuple(outs[2].shape)}, finite={finite}, "
-          f"K1 launches {harness.launch_counts()['composite_forward']}", flush=True)
+          f"K1 launches {kernels.launch_counts()['composite_forward']}", flush=True)
     return outs
 
 

@@ -1,5 +1,5 @@
 """What the measurement scripts share: the device rule, timing and the
-kernels' launch counts."""
+kernels' routes (their launch counts: splatam_tpu_torch/kernels.py)."""
 from __future__ import annotations
 
 import argparse
@@ -10,57 +10,14 @@ from typing import NamedTuple
 
 import torch
 
-from splatam_tpu_torch.core import fused_loss
-from splatam_tpu_torch.render import composite, fused_iso, probes, projection
+from splatam_tpu_torch import kernels
 from splatam_tpu_torch.utils.device import require_device
 
-def wide_launch_counts() -> dict:
-    """Launches of the width instances beside the SLAM loop's (K1 and K2 at
-    five channels, K3 at 8 and 11 columns): K1 and K2 at every other channel
-    count, K3 at every other width of the generic render's rows."""
-    fwd, bwd = composite.composite_forward.launches, composite.composite_backward.launches
-    others = [c for c in composite.CHANNELS if c != composite.CH]
-    return {**{f"composite_forward_ch{c}": fwd[c] for c in others},
-            **{f"composite_backward_ch{c}": bwd[c] for c in others},
-            **{f"segment_reduce{k}": composite.segment_reduce.launches[k]
-               for k in composite.SEGMENT_WIDTHS if k not in (8, 11)}}
 
-
-WIDE = tuple(wide_launch_counts())
-# Every hand-written kernel of the port, by the name chip_smoke.py reports.
-KERNELS = ("composite_forward", "composite_backward", "fused_forward", "fused_backward",
-           "segment_reduce", "segment_reduce11", "fwd2", "dma_only", "dma_b2", "dma_b4",
-           "math_only", "loss_track", "loss_map", "project_forward", "project_backward", *WIDE)
-SHORT = {"composite_forward": "K1", "composite_backward": "K2", "fused_forward": "K4",
-         "fused_backward": "K5", "segment_reduce": "K3-8", "segment_reduce11": "K3-11",
-         **{n: n.replace("composite_forward_", "K1-").replace("composite_backward_", "K2-")
-            .replace("segment_reduce", "K3-") for n in WIDE}}
-
-
-def launch_counts() -> dict:
-    by_width, by_block = composite.segment_reduce.launches, probes.dma_walk.launches
-    return {"composite_forward": composite.composite_forward.launches[composite.CH],
-            "composite_backward": composite.composite_backward.launches[composite.CH],
-            "fused_forward": fused_iso.fused_forward.launches,
-            "fused_backward": fused_iso.fused_backward.launches,
-            "segment_reduce": by_width[8], "segment_reduce11": by_width[11],
-            "fwd2": probes.fwd2.launches, "dma_only": by_block[1], "dma_b2": by_block[2],
-            "dma_b4": by_block[4], "math_only": probes.math_only.launches,
-            "loss_track": fused_loss.loss_terms.launches["track"],
-            "loss_map": fused_loss.loss_terms.launches["map"],
-            "project_forward": projection.project_forward.launches,
-            "project_backward": projection.project_backward.launches, **wide_launch_counts()}
-
-
-def reset_launch_counts() -> None:
-    for fn in (fused_iso.fused_forward, fused_iso.fused_backward, probes.fwd2,
-               probes.math_only, projection.project_forward, projection.project_backward):
-        fn.launches = 0
-    for fn in (composite.composite_forward, composite.composite_backward):
-        fn.launches = dict.fromkeys(composite.CHANNELS, 0)
-    composite.segment_reduce.launches = dict.fromkeys(composite.SEGMENT_WIDTHS, 0)
-    probes.dma_walk.launches = dict.fromkeys(probes.DMA_BLOCKS, 0)
-    fused_loss.loss_terms.launches = {"track": 0, "map": 0}
+def route(before: dict, after: dict) -> str:
+    """The launches between two kernels.launch_counts(), by short name."""
+    return " ".join(f"{k.short or n}x{after[n] - before[n]}" for n, k in kernels.KERNELS.items()
+                    if after[n] != before[n]) or "none"
 
 
 def parser(doc: str) -> argparse.ArgumentParser:
@@ -114,18 +71,10 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-# The port's __global__ functions (csrc/*.cu), as the profiler names them.
-KERNEL_SYMBOLS = ("composite_forward_kernel", "composite_backward_kernel",
-                  "fused_forward_kernel", "fused_backward_kernel", "segment_reduce_kernel",
-                  "segment_reduce_half_kernel", "fused_forward2_kernel", "dma_walk_kernel",
-                  "fused_math_only_kernel", "loss_track_tile_kernel", "loss_map_tile_kernel",
-                  "loss_reduce_kernel", "project_fwd_kernel", "project_bwd_kernel")
-
-
 def port_launches_seen(events) -> int:
     """Launches of the port's kernels among profiler events (key, count);
     the keys are demangled, "void splatam::segment_reduce_kernel<8>(...)"."""
-    return sum(e.count for e in events if any(f"::{sym}" in e.key for sym in KERNEL_SYMBOLS))
+    return sum(e.count for e in events if any(f"::{sym}" in e.key for sym in kernels.SYMBOLS))
 
 
 def profile_device(fn, device: torch.device, per: int = 1) -> Busy:
@@ -137,11 +86,11 @@ def profile_device(fn, device: torch.device, per: int = 1) -> Busy:
     from torch.profiler import ProfilerActivity, profile
 
     _sync(device)
-    before = sum(launch_counts().values())
+    before = sum(kernels.launch_counts().values())
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         _sync(device)
-    launched = sum(launch_counts().values()) - before
+    launched = sum(kernels.launch_counts().values()) - before
     events = sorted((e for e in prof.key_averages()
                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                     key=lambda e: e.self_device_time_total, reverse=True)

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from splatam_tpu_torch import kernels
 from splatam_tpu_torch.render import api, binning, composite
 from splatam_tpu_torch.scripts import harness, scene
 from splatam_tpu_torch.slam import steps
@@ -61,13 +62,12 @@ class Profiler:
         self.results: dict[str, harness.Timing] = {}
 
     def stage(self, name: str, fn) -> harness.Timing:
-        before = harness.launch_counts()
+        before = kernels.launch_counts()
         fn()  # the first warm-up call, whose launches show the route
-        after = harness.launch_counts()
+        after = kernels.launch_counts()
         tm = harness.time_calls(fn, self.device, self.iters, self.reps, warmup=1, busy=True)
         self.results[name] = tm
-        route = " ".join(f"{harness.SHORT.get(k, k)}x{after[k] - before[k]}"
-                         for k in harness.KERNELS if after[k] != before[k]) or "none"
+        route = harness.route(before, after)
         busy = harness.verified_ms(tm.busy)
         idle = "" if busy is None else f" idle {100.0 * (1.0 - busy / tm.wall):5.1f}%"
         print(f"{name:<44s} wall {tm.wall:9.3f} ms  events {harness.fmt_ms(tm.event)}  "

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from splatam_tpu_torch import kernels
 from splatam_tpu_torch.scripts import harness, scene
 from splatam_tpu_torch.slam import steps
 
@@ -72,12 +73,11 @@ def run(gm, q, t, cam, device, iters: int, reps: int) -> dict:
     )
     out = {}
     for name, fn in probes:
-        before = harness.launch_counts()
+        before = kernels.launch_counts()
         fn()
-        after = harness.launch_counts()
+        after = kernels.launch_counts()
         out[name] = tm = harness.time_calls(fn, device, iters, reps)
-        route = " ".join(f"{harness.SHORT.get(k, k)}x{after[k] - before[k]}"
-                         for k in harness.KERNELS if after[k] != before[k]) or "none"
+        route = harness.route(before, after)
         print(f"{name:<48s} wall {tm.wall:9.3f} ms  events {harness.fmt_ms(tm.event)}  "
               f"launches {route}", flush=True)
     return out

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from splatam_tpu_torch import kernels
 from splatam_tpu_torch.core.camera import Camera
 from splatam_tpu_torch.core.gaussians import GaussianMap
 from splatam_tpu_torch.render import bounds, composite, fused_iso
@@ -221,7 +222,7 @@ def test_cull_step_counts_on_pairs_projected_from_world_rows(family):
 def test_kernel_symbols_are_the_global_functions_of_csrc():
     text = "".join(p.read_text() for p in sorted(CSRC.glob("*.cu")))
     found = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", text)
-    assert sorted(found) == sorted(harness.KERNEL_SYMBOLS)
+    assert sorted(found) == sorted(kernels.SYMBOLS)
 
 
 def test_port_launches_seen_counts_only_the_port_kernels():

@@ -772,7 +772,7 @@ def test_eval_sequence_on_the_card_launches_k1(slam_runs, tmp_path):
     run's own params.npz, gives the run's metrics bit for bit."""
     from splatam_tpu_torch.data import dataset_from_config
     from splatam_tpu_torch.eval.evaluate import eval_sequence
-    from splatam_tpu_torch.scripts.harness import launch_counts, reset_launch_counts
+    from splatam_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     config, metrics = slam_runs["cuda"]
     cfg_m = config["mapping"]
