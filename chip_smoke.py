@@ -40,7 +40,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      gradient plane within 1e-5 of its largest value), twice bit for bit,
      timed beside its plain version and the PyTorch composition it
      replaces (forward and backward), with the memory each holds between
-     them, its registers and its bound;
+     them, its registers and its bound; then the structure build's kernels
+     (csrc/binning.cu) on path 1's final map at its last pose: build_bins
+     equal to build_bins_plain (the int64 build) field for field, classic
+     and J-slot, one launch of each kernel a build, each kernel equal to
+     its plain version bit for bit and timed beside it, and the bytes one
+     build holds above its entry on both routes, a pair (again on path 2's
+     final map);
   6. one more frame of path 1 under torch.profiler (device activity only):
      its wall time, the device-busy time inside that same frame, and the
      kernels that take the device time;
@@ -275,18 +281,21 @@ LOOP_KERNELS = ("composite_forward", "composite_backward", "fused_forward", "fus
 # and structure build projects through project_forward; project_backward
 # runs wherever a generic render takes a gradient (K2's paths), and not on
 # the fused paths checked for it (path 1, the probes).
+# Every structure build on the card without the tile cull launches the two
+# build kernels.
+BUILD = ("bins_expand", "bins_scatter")
 GENERIC = (("composite_forward", "composite_backward", "segment_reduce11", "project_forward",
-            "project_backward"),
+            "project_backward", *BUILD),
            ("fused_forward", "fused_backward", "segment_reduce", *kernels.PROBES))
 # the fused route (rebin 8, isotropic map): K4, K5 and K3-8 in the phases, K1 beside
-FUSED = (("composite_forward", "fused_forward", "fused_backward", "segment_reduce"),
+FUSED = (("composite_forward", "fused_forward", "fused_backward", "segment_reduce", *BUILD),
          ("composite_backward", "segment_reduce11", *kernels.PROBES))
-EVAL = (("composite_forward",),
+EVAL = (("composite_forward", *BUILD),
         ("composite_backward", "fused_forward", "fused_backward", "segment_reduce",
          "segment_reduce11", *kernels.PROBES))
 PATH_KERNELS = {
     "path 1": (("composite_forward", "fused_forward", "fused_backward", "segment_reduce",
-                "loss_track", "loss_map", "project_forward"),
+                "loss_track", "loss_map", "project_forward", *BUILD),
                ("composite_backward", "segment_reduce11", "project_backward", *kernels.PROBES)),
     "path 2": GENERIC,
     "path 3": GENERIC,
@@ -305,7 +314,7 @@ PATH_KERNELS = {
     "path 8": GENERIC,
     "path 9": GENERIC,
     "path 10": (("composite_forward", "composite_backward", "segment_reduce11", "fused_forward",
-                 "fused_backward", "project_forward", "project_backward"),
+                 "fused_backward", "project_forward", "project_backward", *BUILD),
                 ("segment_reduce", *kernels.PROBES)),
     "probes": (("fused_forward", *kernels.PROBES),
                ("composite_forward", "composite_backward", "fused_backward", "segment_reduce",
@@ -335,10 +344,11 @@ PATH_KERNELS = {
     # without the cull; the variants' renders run all three routes; the
     # entry check renders through K1 alone
     "path 16 bench": FUSED,
-    "path 16 bench cull": FUSED,
+    # every build there takes the tile cull's PyTorch path
+    "path 16 bench cull": ((*(k for k in FUSED[0] if k not in BUILD),), (*FUSED[1], *BUILD)),
     "path 16 variants": (("composite_forward", "composite_backward", "segment_reduce11",
                           "fused_forward", "fused_backward", "segment_reduce", "project_forward",
-                          "project_backward"), kernels.PROBES),
+                          "project_backward", *BUILD), kernels.PROBES),
     "path 16 entry": EVAL,
 }
 # No path but path 11 launches K1, K2 or K3 at another width.
@@ -1326,6 +1336,108 @@ def check_projection(gm, q, t, cam, label: str) -> tuple:
                                  "project_backward": library["autograd"]}
 
 
+def build_work(n: int, pairs: int, tiles: int) -> dict:
+    """(bytes, operations) of the build kernels, each byte moved once: the
+    expansion reads offsets (4), the two int64 rectangles (32) and the
+    int64 quantized depth (8) a Gaussian and writes a 4-byte key a pair;
+    the scatter reads the sorted key and the int64 order (12) a pair and
+    offsets a Gaussian, and writes pair_gauss and dst (8) a pair and the
+    tile starts. Operations are left at 0: a binary search and a few
+    integer operations a pair."""
+    return {"bins_expand": (44 * n + 4 * pairs, 0),
+            "bins_scatter": (4 * n + 20 * pairs + 4 * (tiles + 1), 0)}
+
+
+def build_held(fn) -> int:
+    """Bytes the allocator's peak rose above what was live when fn started."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    held = torch.cuda.max_memory_allocated() - base
+    del out
+    return held
+
+
+def check_build(gm, q, t, cam, label: str) -> tuple:
+    """Phase 5d: the structure build's kernels (csrc/binning.cu) on a map at
+    a pose, as the generic render builds (camera-frame means): build_bins
+    (bins_expand, the stable int32 sort, bins_scatter) equal to
+    build_bins_plain (the int64 build) field for field, classic and J-slot
+    (direct_j 2), one launch of each kernel a build; each kernel equal to
+    its plain version bit for bit, timed in turns with it, its device time
+    under torch.profiler where verified; the whole build on both routes
+    (time, and the bytes it holds above its entry, a pair); bounds. Returns
+    (errs, times, bounds, library), the library column the int64 build."""
+    import torch
+
+    from splatam_tpu_torch.render import api, binning
+    from splatam_tpu_torch.scripts.harness import device_busy
+    from splatam_tpu_torch.slam import steps
+
+    means, rots = steps.transform_to_frame(gm, q, t, False, False)
+    proj, aux = api.project_gaussians(cam, means, rots, gm.logit_opacities, gm.log_scales,
+                                      gm.active)
+    args = (proj, aux, cam.width, cam.height, cam.far)
+    fields = ("pair_gauss", "tile_start", "offsets", "counts", "dst")
+    for opts in ({}, {"direct_j": 2}):
+        before = binning.bins_expand.launches, binning.bins_scatter.launches
+        got = binning.build_bins(*args, **opts)
+        launched = (binning.bins_expand.launches - before[0],
+                    binning.bins_scatter.launches - before[1])
+        ref = binning.build_bins_plain(*args, **opts)
+        same = got.n_pairs == ref.n_pairs and all(
+            torch.equal(getattr(got, f), getattr(ref, f)) for f in fields)
+        ok = same and launched == (1, 1)
+        print(f"[{label}] build_bins {opts or 'classic'}: {got.n_pairs} pairs, equal to the "
+              f"int64 build field for field {same}, launches (expand, scatter) {launched} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"build_bins' kernels disagree with build_bins_plain ({label}, {opts})")
+        del got, ref
+
+    grid_x, num_tiles, bits = binning._key_grid(cam.width, cam.height, None)
+    _, offsets, total = binning._pair_counts(aux)
+    offsets = offsets.to(torch.int32)
+    qdepth = binning.quantized_depth(proj.depth, bits, cam.far)
+    ex = (offsets, aux.rect_min, aux.rect_wh, qdepth, total, grid_x, bits, 0)
+    key = binning.bins_expand(*ex)
+    sorted_key, order = torch.sort(key, stable=True)
+    sc = (sorted_key, order, offsets, bits, num_tiles)
+    same = {"bins_expand": torch.equal(key, binning.bins_expand_plain(*ex)),
+            "bins_scatter": all(torch.equal(a, b) for a, b in zip(
+                binning.bins_scatter(*sc), binning.bins_scatter_plain(*sc)))}
+    print(f"[{label}] bins_expand / bins_scatter equal to their plain versions bit for bit: "
+          f"{same} {'ok' if all(same.values()) else 'FAIL'}", flush=True)
+    if not all(same.values()):
+        fail(f"a build kernel disagrees with its plain version ({label})")
+    errs = dict.fromkeys(same, 0.0)
+    calls = {"bins_expand": (lambda: binning.bins_expand(*ex),
+                             lambda: binning.bins_expand_plain(*ex)),
+             "bins_scatter": (lambda: binning.bins_scatter(*sc),
+                              lambda: binning.bins_scatter_plain(*sc))}
+    times = time_turns([(name, k, p) for name, (k, p) in calls.items()])
+    for name, (fn, _) in calls.items():
+        busy = device_busy(fn, means.device, 20)
+        print(f"[{label}] {name}: device time {busy.ms:.4f} ms a call (profiler, "
+              f"verified={busy.verified})", flush=True)
+        if busy.verified:
+            times[name] = (busy.ms, times[name][1])
+    routes = {"kernels": lambda: binning.build_bins(*args),
+              "int64": lambda: binning.build_bins_plain(*args)}
+    held = {route: build_held(fn) for route, fn in routes.items()}
+    whole = {route: min(event_ms(fn, 10, 2) for _ in range(2)) for route, fn in routes.items()}
+    print(f"[{label}] one build of {total} pairs ({gm.means3d.shape[0]} Gaussians): the kernels "
+          f"{whole['kernels']:.3f} ms, holding {held['kernels']} B above its entry "
+          f"({held['kernels'] / total:.1f} B a pair); the int64 build {whole['int64']:.3f} ms, "
+          f"{held['int64']} B ({held['int64'] / total:.1f} B a pair)", flush=True)
+    bounds = report_bounds(build_work(gm.means3d.shape[0], total, num_tiles), times, label)
+    return errs, times, bounds, dict.fromkeys(calls, whole["int64"])
+
+
 def report_quality(label: str, metrics: dict, card: str) -> None:
     """Print the final evaluation's metrics; fatal unless all are finite."""
     vals = [metrics[k] for k in QUALITY] + list(metrics.get("runtime", {}).values())
@@ -1937,7 +2049,7 @@ def drive_generic(m) -> tuple:
     backward of a seeded weighting of every output row; counts zeroed just
     before each case and read just after, which must show one launch of K1
     and K2 at the case's channel count, of K3 at 6 + that count and of each
-    projection kernel, and no other. Case e's rows must equal render_rgbd_sil's bit for bit. Returns
+    projection and build kernel, and no other. Case e's rows must equal render_rgbd_sil's bit for bit. Returns
     the counts summed over the cases."""
     import torch
 
@@ -1965,7 +2077,7 @@ def drive_generic(m) -> tuple:
         want = {kernels.of("composite_forward")[ch].name: 1,
                 kernels.of("composite_backward")[ch].name: 1,
                 kernels.of("segment_reduce")[6 + ch].name: 1,
-                "project_forward": 1, "project_backward": 1}
+                "project_forward": 1, "project_backward": 1, **dict.fromkeys(BUILD, 1)}
         finite = bool(torch.isfinite(img).all()) and all(bool(torch.isfinite(g).all())
                                                          for g in grads)
         print(f"path 11 {label}: kernel ch {ch}, image {tuple(img.shape)}, {n_pairs} pairs, "
@@ -3144,6 +3256,9 @@ def main() -> None:
     for table, proj_table in zip((errs, times, bounds, library),
                                  check_projection(*final_map, f"projection, {label}")):
         table.update(proj_table)
+    for table, build_table in zip((errs, times, bounds, library),
+                                  check_build(*final_map, f"build, {label}")):
+        table.update(build_table)
     profile_frame(rt, FRAMES, "path 1", device)
     del rt, view
     torch.cuda.empty_cache()
@@ -3152,6 +3267,7 @@ def main() -> None:
                                         FRAMES_GENERIC, device)
     profile_frame(rt, FRAMES_GENERIC, "path 2", device)
     check_projection(*final_map_of(rt, FRAMES_GENERIC, device), "projection, path 2")
+    check_build(*final_map_of(rt, FRAMES_GENERIC, device), "build, path 2")
     del rt
     torch.cuda.empty_cache()
 

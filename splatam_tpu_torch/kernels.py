@@ -11,7 +11,7 @@ from functools import partial
 from typing import NamedTuple
 
 from splatam_tpu_torch.core import fused_loss
-from splatam_tpu_torch.render import composite, fused_iso, probes, projection
+from splatam_tpu_torch.render import binning, composite, fused_iso, probes, projection
 
 _PALLAS, _CSRC = "splatam_tpu/render/pallas/", "splatam_tpu_torch/csrc/"
 
@@ -88,6 +88,11 @@ _ROWS = (
     Kernel("project_backward", None, (projection, "project_backward", None), "project_backward",
            ("project_bwd_kernel",), ("project_info", 1), f"none (jax.vjp of {_PROJECT})",
            f"{_CSRC}projection.cu", 1e-5, deterministic=True),
+    # the structure build's expansion and scatter: integer outputs, exact
+    *(Kernel(f"bins_{step}", None, (binning, f"bins_{step}", None), f"bins_{step}",
+             (f"bins_{step}_kernel",), ("bins_info", i),
+             "none (XLA: splatam_tpu/render/binning.py build_bins)", f"{_CSRC}binning.cu", None,
+             bit_equal=True) for i, step in enumerate(("expand", "scatter"))),
 )
 # K1 and K2 at every other channel count, K3 at every other width of the
 # generic render's rows (6 + ch): render_gaussians alone launches these.

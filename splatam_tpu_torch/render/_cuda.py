@@ -56,6 +56,11 @@ _SIGNATURES = {
     "project_forward": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "project_backward": [_I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _I, _I, _P, _I,
                          _P, _P, _P, _P, _P],
+    # the structure build's per-pair work (csrc/binning.cu): pairs, Gaussians,
+    # offsets, the int64 rectangles and depth keys, grid_x, bits, direct_j, key;
+    # then pairs, Gaussians, sorted keys, order, offsets, key bits, tiles, outputs
+    "bins_expand": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "bins_scatter": [_I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     # what the compiler gave a kernel (registers, local bytes, blocks per SM)
     "composite_forward_info": [_I, _IP, _IP, _IP],
     "composite_backward_info": [_I, _IP, _IP, _IP],
@@ -64,6 +69,7 @@ _SIGNATURES = {
     "segment_reduce_info": [_I, _IP, _IP, _IP],
     "loss_info": [_I, _IP, _IP, _IP],
     "project_info": [_I, _IP, _IP, _IP],
+    "bins_info": [_I, _IP, _IP, _IP],
     # the fused forward's probe kernels (csrc/fused_probes.cu)
     "fused_forward2": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "fused_math_only": [_P, _P, _P, _I, _I, _I, _I, _P, _P],

@@ -118,11 +118,10 @@ def compute_pair_structure(cam: Camera, means3d, unnorm_rotations, logit_opaciti
         proj, aux = project_gaussians(cam, means3d, unnorm_rotations, logit_opacities,
                                       log_scales, active, intrinsics_override, lim_wh)
         ps = _bins(proj, aux, cam, lim_wh, bin_opts)
-        idx = ps.pair_gauss.long()
         if world_rows8 is not None:
-            ps = ps._replace(world8=world_rows8[idx].contiguous())
+            ps = ps._replace(world8=torch.index_select(world_rows8, 0, ps.pair_gauss))
         elif world_rows is not None:
-            ps = ps._replace(world16=world_rows[idx].contiguous())
+            ps = ps._replace(world16=torch.index_select(world_rows, 0, ps.pair_gauss))
     return ps
 
 

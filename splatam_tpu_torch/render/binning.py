@@ -19,6 +19,13 @@ Both of the reference's binning variants (tpu.tile_cull, tpu.direct_j) are
 here, with exact buffers (build_bins). With the cull, the culled slots
 leave the expansion before the sort: offsets, counts and dst then describe
 the kept slots, and n_pairs counts them.
+
+On the card (without the cull) the per-pair work is two hand-written
+kernels over 32-bit keys (csrc/binning.cu): bins_expand writes each slot's
+key, a stable torch.sort orders them, bins_scatter writes pair_gauss, dst
+and tile_start (build_bins_keyed). build_bins_plain is the same function in
+PyTorch's ops over int64 keys, which the CPU and the cull take. Both give
+the same Bins bit for bit.
 """
 from __future__ import annotations
 
@@ -27,8 +34,13 @@ from typing import NamedTuple
 
 import torch
 
+from splatam_tpu_torch.render import _cuda
 from splatam_tpu_torch.render.projection import NEAR_CLIP, TILE, Projected, ProjectedAux
 from splatam_tpu_torch.utils import spans
+
+# The 32-bit key is stored as an int32 with its top bit flipped (key - 2**31),
+# so the int32 order is the key's unsigned order (csrc/binning.cu KEY_FLIP).
+KEY_FLIP = 1 << 31
 
 
 class Bins(NamedTuple):
@@ -119,10 +131,49 @@ def tile_culled(tx, ty, px, py, a, b, c, cut):
     return m > cut + 1e-4
 
 
+def _key_grid(width: int, height: int, full_wh: tuple | None) -> tuple[int, int, int]:
+    """(grid_x, num_tiles, depth bits) of a build: the image's tile grid,
+    and the depth key's bits from the full image's (full_wh) tile count."""
+    grid_x, grid_y = grid_shape(width, height)
+    key_x, key_y = grid_shape(*full_wh) if full_wh is not None else (grid_x, grid_y)
+    return grid_x, grid_x * grid_y, depth_bits_for(key_x * key_y)
+
+
+def _pair_counts(aux: ProjectedAux) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """(counts, offsets, total): each Gaussian's pairs (its rectangle's area
+    where visible, else 0), its first expansion slot (int64) and the pair
+    count, read back to size the pair buffers exactly."""
+    rect_w = aux.rect_wh[:, 0]
+    counts = torch.where(aux.visible, rect_w * aux.rect_wh[:, 1], torch.zeros_like(rect_w))
+    offsets = torch.cumsum(counts, 0) - counts
+    with spans.waited("bins.total"):  # the pair count that sizes the buffers
+        total = int(counts.sum())
+    return counts, offsets, total
+
+
 def build_bins(proj: Projected, aux: ProjectedAux, width: int, height: int,
                far: float = 100.0, full_wh: tuple | None = None, tile_cull: bool = False,
                direct_j: int = 0) -> Bins:
-    """Expand (gaussian, tile) pairs and sort them by (tile, depth) key.
+    """Expand (gaussian, tile) pairs and sort them by (tile, depth) key
+    (build_bins_plain says how). On CUDA tensors without tile_cull through
+    the kernels of build_bins_keyed, else build_bins_plain: the same Bins
+    bit for bit. Counts the build in build_bins.totals."""
+    if proj.depth.is_cuda and not tile_cull:
+        b = build_bins_keyed(proj, aux, width, height, far, full_wh, direct_j)
+    else:
+        b = build_bins_plain(proj, aux, width, height, far, full_wh, tile_cull, direct_j)
+    totals = build_bins.totals
+    totals["builds"] += 1
+    totals["pairs"] += b.n_pairs
+    totals["culled"] += b.n_culled
+    return b
+
+
+def build_bins_plain(proj: Projected, aux: ProjectedAux, width: int, height: int,
+                     far: float = 100.0, full_wh: tuple | None = None, tile_cull: bool = False,
+                     direct_j: int = 0) -> Bins:
+    """Expand (gaussian, tile) pairs and sort them by (tile, depth) key, in
+    PyTorch's ops over int64 keys.
 
     full_wh: the (width, height) of the image this one is a band of. Its
     tile count, not the band's, sets the depth key's bits, so a band's
@@ -145,17 +196,10 @@ def build_bins(proj: Projected, aux: ProjectedAux, width: int, height: int,
     path when pair_cap < J * N + 4096, its tail-only overflow and its
     in_stream change have no counterpart: there is no pair cap."""
     device = proj.depth.device
-    grid_x, grid_y = grid_shape(width, height)
-    num_tiles = grid_x * grid_y
-    key_x, key_y = grid_shape(*full_wh) if full_wh is not None else (grid_x, grid_y)
-    bits = depth_bits_for(key_x * key_y)
+    grid_x, num_tiles, bits = _key_grid(width, height, full_wh)
     n = proj.depth.shape[0]
-
     rect_w = aux.rect_wh[:, 0]
-    counts = torch.where(aux.visible, rect_w * aux.rect_wh[:, 1], torch.zeros_like(rect_w))
-    offsets = torch.cumsum(counts, 0) - counts
-    with spans.waited("bins.total"):  # the pair count that sizes the buffers
-        total = int(counts.sum())
+    counts, offsets, total = _pair_counts(aux)
 
     qdepth = quantized_depth(proj.depth, bits, far)
 
@@ -190,10 +234,6 @@ def build_bins(proj: Projected, aux: ProjectedAux, width: int, height: int,
     tile_start = torch.searchsorted(sorted_key, targets, side="left")
     dst = torch.empty(total, dtype=torch.int32, device=device)
     dst[order] = torch.arange(total, dtype=torch.int32, device=device)
-    totals = build_bins.totals
-    totals["builds"] += 1
-    totals["pairs"] += total
-    totals["culled"] += n_culled
     return Bins(
         pair_gauss=g[order].to(torch.int32),
         tile_start=tile_start.to(torch.int32),
@@ -203,6 +243,106 @@ def build_bins(proj: Projected, aux: ProjectedAux, width: int, height: int,
         n_pairs=total,
         n_culled=n_culled,
     )
+
+
+def build_bins_keyed(proj: Projected, aux: ProjectedAux, width: int, height: int,
+                     far: float = 100.0, full_wh: tuple | None = None,
+                     direct_j: int = 0) -> Bins:
+    """build_bins_plain without the cull, over 32-bit keys: bins_expand
+    writes each expansion slot's key, a stable sort orders them (ties in
+    slot order, as the int64 sort keeps them), bins_scatter writes the
+    outputs. On the card the two are kernels and a pair holds its key into
+    the sort; on the CPU their plain versions run (the kernels' twin)."""
+    device = proj.depth.device
+    grid_x, num_tiles, bits = _key_grid(width, height, full_wh)
+    counts, offsets, total = _pair_counts(aux)
+    counts, offsets = counts.to(torch.int32), offsets.to(torch.int32)
+    if total == 0:  # nothing to launch
+        empty = torch.empty(0, dtype=torch.int32, device=device)
+        return Bins(empty, torch.zeros(num_tiles + 1, dtype=torch.int32, device=device), offsets,
+                    counts, empty, 0)
+    qdepth = quantized_depth(proj.depth, bits, far)
+    key = bins_expand(offsets, aux.rect_min, aux.rect_wh, qdepth, total, grid_x, bits, direct_j)
+    sorted_key, order = torch.sort(key, stable=True)
+    del key
+    pair_gauss, dst, tile_start = bins_scatter(sorted_key, order, offsets,
+                                               bits + (direct_j > 0), num_tiles)
+    return Bins(pair_gauss, tile_start, offsets, counts, dst, total)
+
+
+def bins_expand(offsets, rect_min, rect_wh, qdepth, total: int, grid_x: int, bits: int,
+                direct_j: int) -> torch.Tensor:
+    """[total] int32: the stored 32-bit key (KEY_FLIP) of every expansion
+    slot, from offsets [N] int32, the rectangles [N, 2] and quantized depths
+    [N] as the projection and quantized_depth give them (int64). Kernel
+    wrapper on the card (one launch, total > 0), bins_expand_plain on the CPU."""
+    if not offsets.is_cuda:
+        return bins_expand_plain(offsets, rect_min, rect_wh, qdepth, total, grid_x, bits,
+                                 direct_j)
+    n = offsets.shape[0]
+    _cuda.require(offsets, "offsets", torch.int32, (n,))
+    _cuda.require(rect_min, "rect_min", torch.int64, (n, 2))
+    _cuda.require(rect_wh, "rect_wh", torch.int64, (n, 2))
+    _cuda.require(qdepth, "qdepth", torch.int64, (n,))
+    key = torch.empty(total, dtype=torch.int32, device=offsets.device)
+    _cuda.launch(offsets, "bins_expand", total, n, offsets.data_ptr(), rect_min.data_ptr(),
+                 rect_wh.data_ptr(), qdepth.data_ptr(), grid_x, bits, direct_j, key.data_ptr())
+    bins_expand.launches += 1
+    return key
+
+
+bins_expand.launches = 0
+
+
+def bins_expand_plain(offsets, rect_min, rect_wh, qdepth, total: int, grid_x: int, bits: int,
+                      direct_j: int) -> torch.Tensor:
+    """bins_expand in PyTorch: each slot's Gaussian by a binary search of
+    offsets, then build_bins_plain's key, stored as int32."""
+    s = torch.arange(total, dtype=torch.int32, device=offsets.device)
+    g = torch.searchsorted(offsets, s, right=True) - 1
+    j = (s - offsets[g]).to(torch.int64)
+    w = torch.clamp(rect_wh[g, 0], min=1)
+    tdy = torch.div(j, w, rounding_mode="floor")
+    key = ((rect_min[g, 1] + tdy) * grid_x + rect_min[g, 0] + j - tdy * w) << bits | qdepth[g]
+    if direct_j > 0:
+        key = (key << 1) | (j >= direct_j).to(key.dtype)
+    return (key - KEY_FLIP).to(torch.int32)
+
+
+def bins_scatter(sorted_key, order, offsets, key_bits: int, num_tiles: int) -> tuple:
+    """(pair_gauss, dst, tile_start), int32, from the sorted stored keys
+    [P] int32 and the sort's order [P] int64 (slot of each sorted position):
+    each position's Gaussian by a binary search of offsets, each slot's
+    position, and tile t's first position (P past the last pair's tile).
+    Kernel wrapper on the card (one launch, P > 0), bins_scatter_plain on the CPU."""
+    if not sorted_key.is_cuda:
+        return bins_scatter_plain(sorted_key, order, offsets, key_bits, num_tiles)
+    total, n = sorted_key.shape[0], offsets.shape[0]
+    _cuda.require(sorted_key, "sorted_key", torch.int32, (total,))
+    _cuda.require(order, "order", torch.int64, (total,))
+    _cuda.require(offsets, "offsets", torch.int32, (n,))
+    i32 = dict(dtype=torch.int32, device=sorted_key.device)
+    pair_gauss, dst = torch.empty(total, **i32), torch.empty(total, **i32)
+    tile_start = torch.empty(num_tiles + 1, **i32)
+    _cuda.launch(sorted_key, "bins_scatter", total, n, sorted_key.data_ptr(), order.data_ptr(),
+                 offsets.data_ptr(), key_bits, num_tiles, pair_gauss.data_ptr(), dst.data_ptr(),
+                 tile_start.data_ptr())
+    bins_scatter.launches += 1
+    return pair_gauss, dst, tile_start
+
+
+bins_scatter.launches = 0
+
+
+def bins_scatter_plain(sorted_key, order, offsets, key_bits: int, num_tiles: int) -> tuple:
+    """bins_scatter in PyTorch."""
+    total, device = sorted_key.shape[0], sorted_key.device
+    pair_gauss = (torch.searchsorted(offsets, order.to(torch.int32), right=True) - 1).to(torch.int32)
+    dst = torch.empty(total, dtype=torch.int32, device=device)
+    dst[order] = torch.arange(total, dtype=torch.int32, device=device)
+    tile = (sorted_key.to(torch.int64) + KEY_FLIP) >> key_bits
+    tile_start = torch.searchsorted(tile, torch.arange(num_tiles + 1, device=device))
+    return pair_gauss, dst, tile_start.to(torch.int32)
 
 
 def reset_pair_totals() -> None:

@@ -47,7 +47,11 @@ are rounding there: under 1e-5 of the log-scale gradient's largest; an
 anisotropic map's quaternion and log-scale columns within 1e-4, float32
 cancellation in the covariance's chain, 2e-5 to 4e-5 from float64 on
 either side), two launches equal bit for bit; the generic render launches
-both, the fused mapping render neither.
+both, the fused mapping render neither. The structure build's kernels
+(csrc/binning.cu) give build_bins_plain's Bins field for field on the
+first maps of slam_bench's two cells (tum's 640x480, replica_bench's
+1200x680: path 1's configuration), classic, J-slot and keyed by a larger
+grid, one launch of each a build.
 """
 import numpy as np
 import pytest
@@ -926,3 +930,38 @@ def test_renders_launch_the_projection_kernels_where_they_project(cuda):
                                             gm.active, q, torch.zeros(3, device=cuda))
     out.im.sum().backward()
     assert (projection.project_forward.launches, projection.project_backward.launches) == (f0, b0)
+
+
+@pytest.mark.parametrize("workload", ["tum.fr1_desk", "replica_bench.fr1_desk"])
+def test_build_kernels_give_the_int64_builds_bins_on_a_cells_first_map(cuda, workload,
+                                                                       tmp_path):
+    """The frame-0 map slam_bench's runtime makes from the cell's first
+    frame, projected at frame 0's pose: build_bins (bins_expand, the int32
+    sort, bins_scatter) against build_bins_plain on the card."""
+    from slam_bench import spec, traffic
+    from slam_bench.loop import Loop
+    from splatam_tpu_torch.core.gaussians import GaussianMap
+
+    seed = 2200000101
+    cell = spec.Cell(spec.load(), workload)
+    plan = traffic.Plan(cell.traffic, seed, 2)
+    frames = traffic.make_frames(plan, cell.config["camera"], cell.config["sensor"],
+                                 cell.config["scene"], seed, cuda)
+    rt = Loop(cell.config, plan, frames, cuda, str(tmp_path)).rt
+    view = GaussianMap(*(a[:rt.gm.span()] for a in rt.gm))
+    q = torch.as_tensor(rt.cam_rots[0], device=cuda)
+    t = torch.as_tensor(rt.cam_trans[0], device=cuda)
+    means, rots = steps.transform_to_frame(view, q, t, False, False)
+    cam = rt.cam
+    proj, aux = api.project_gaussians(cam, means, rots, view.logit_opacities, view.log_scales,
+                                      view.active)
+    for opts in ({}, {"direct_j": 2}, {"full_wh": (2 * cam.width, 2 * cam.height)}):
+        launches = binning.bins_expand.launches, binning.bins_scatter.launches
+        got = binning.build_bins(proj, aux, cam.width, cam.height, cam.far, **opts)
+        assert (binning.bins_expand.launches - launches[0],
+                binning.bins_scatter.launches - launches[1]) == (1, 1)
+        ref = binning.build_bins_plain(proj, aux, cam.width, cam.height, cam.far, **opts)
+        assert got.n_pairs == ref.n_pairs > view.means3d.shape[0], opts
+        for field in ("pair_gauss", "tile_start", "offsets", "counts", "dst"):
+            a, b = getattr(got, field), getattr(ref, field)
+            assert a.dtype == b.dtype == torch.int32 and torch.equal(a, b), (field, opts)

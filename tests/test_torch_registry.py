@@ -44,11 +44,27 @@ def test_every_library_entry_that_launches_belongs_to_a_row():
             assert len(_cuda._SIGNATURES[entry]) == len(args) + 3, k.name
 
 
+def test_every_library_entry_takes_the_arguments_its_signature_lists():
+    """Each extern "C" function of csrc/ against its _SIGNATURES entry, by
+    name and by its number of parameters: ctypes passes an argument past
+    the listed ones as a C int, which would cut a stream pointer."""
+    import re
+
+    text = "".join(p.read_text() for p in sorted(_cuda.CSRC.glob("*.cu")))
+    arity = {m.group(1): len([a for a in m.group(2).split(",") if a.strip()])
+             for m in re.finditer(r'extern "C"\s+(?:int|const char\s*\*)\s+(\w+)\s*\(([^)]*)\)',
+                                  text)}
+    assert set(arity) == set(_cuda._SIGNATURES)
+    for name, argtypes in _cuda._SIGNATURES.items():
+        assert arity[name] == len(argtypes), name
+
+
 def test_the_rows_are_the_instances_the_wrappers_count():
-    """41 rows: the SLAM loop's, the probes', the loss's and the projection's
-    kernels, and K1/K2 at every other channel count and K3 at every other
-    width; each key a dict counter holds has one row."""
-    assert len(kernels.KERNELS) == 41 and len(kernels.WIDE) == 26
+    """43 rows: the SLAM loop's, the probes', the loss's, the projection's
+    and the structure build's kernels, and K1/K2 at every other channel
+    count and K3 at every other width; each key a dict counter holds has
+    one row."""
+    assert len(kernels.KERNELS) == 43 and len(kernels.WIDE) == 26
     assert kernels.PROBES == ("fwd2", "dma_only", "dma_b2", "dma_b4", "math_only")
     assert set(kernels.of("composite_forward")) == set(composite.CHANNELS)
     assert set(kernels.of("composite_backward")) == set(composite.CHANNELS)
