@@ -120,12 +120,6 @@ def slice_prefix(gm: GaussianMap, n: int) -> GaussianMap:
     return GaussianMap(*(a[:n] for a in gm))
 
 
-def write_prefix(gm: GaussianMap, view: GaussianMap) -> GaussianMap:
-    """Full buffers with the first view.capacity slots replaced."""
-    n = view.capacity
-    return GaussianMap(*(torch.cat([v, a[n:]]) for a, v in zip(gm, view)))
-
-
 def grow_capacity(gm: GaussianMap, new_capacity: int) -> GaussianMap:
     """Pad with inactive slots."""
     if new_capacity < gm.capacity:

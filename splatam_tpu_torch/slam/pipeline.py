@@ -460,9 +460,8 @@ class SLAMRuntime:
         if cfg_m.get("use_gaussian_splatting_densification", False):
             self._map_frame_3dgs(time_idx, selected, num_iters, lrs)
             return
-        view, _, _, hist = self._mapping_chunk(time_idx, selected, num_iters, lrs,
-                                               G.slice_prefix(self.gm, self.gm.span()))
-        self.gm = G.write_prefix(self.gm, view)
+        _, _, _, hist = self._mapping_chunk(time_idx, selected, num_iters, lrs,
+                                            G.slice_prefix(self.gm, self.gm.span()))
         if hist is not None:
             with spans.waited("map.hist_readback"):
                 self.mapping_hist = hist.cpu().numpy()
@@ -471,7 +470,10 @@ class SLAMRuntime:
                        opt_state=None, gsvars=None, start_iter: int = 0,
                        track_stats: bool = False):
         """mapping_phase on the view for num_iters iterations, with this
-        chunk's keyframe draws (and, at rebin_every > 1, its structures)."""
+        chunk's keyframe draws (and, at rebin_every > 1, its structures).
+        The view is a prefix of self.gm's storage, handed over: the phase
+        writes every step into it (in_place), so self.gm holds the result
+        with no copy."""
         with spans.span("draw"):
             slots, qs, ts, struct_qs, struct_ts, iter_idx = self._mapping_inputs(
                 time_idx, selected, num_iters)
@@ -482,7 +484,7 @@ class SLAMRuntime:
             self.cam, num_iters, self.pcfg_map, self.prune_cfg, lrs, struct_qs, struct_ts,
             iter_idx, record_hist=self.record_hist, opt_state=opt_state, gsvars=gsvars,
             start_iter=start_iter, track_stats=track_stats, bands=self.bands,
-            bin_opts=self.bin_opts)
+            bin_opts=self.bin_opts, in_place=True)
 
     def _map_frame_3dgs(self, time_idx: int, selected: list, num_iters: int, lrs: tuple):
         """Mapping with 3DGS clone/split between chunks (splatam_tpu/slam/
@@ -508,7 +510,6 @@ class SLAMRuntime:
             it += n
             if not dcfg.due(it):
                 continue
-            self.gm = G.write_prefix(self.gm, view)
             full_gsv, full_opt = steps_gs.pad_state(steps_gs.GSVariables(*gsvars), opt_state,
                                                     self.gm.capacity)
             cap = self.gm.capacity
@@ -530,7 +531,6 @@ class SLAMRuntime:
                                        split=n_split, active=span))
             print(f"[splatam-torch] frame {time_idx} 3DGS densify at iteration {it}: cloned "
                   f"{n_clone}, split {n_split}, {span} Gaussians active", flush=True)
-        self.gm = G.write_prefix(self.gm, view)
         if hists[0] is not None:
             self.mapping_hist = torch.cat(hists).cpu().numpy()
 

@@ -292,7 +292,8 @@ def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs,
                   prune_cfg: PruneConfig, lrs: tuple, struct_qs=None, struct_ts=None,
                   iter_struct_idx=None, record_hist: bool = False, opt_state=None,
                   gsvars=None, start_iter: int = 0, track_stats: bool = False,
-                  bands: list | None = None, bin_opts: BinOptions = api.CLASSIC):
+                  bands: list | None = None, bin_opts: BinOptions = api.CLASSIC,
+                  in_place: bool = False):
     """Mapping iterations for one frame over keyframes drawn by the host.
 
     iter_slots: per-iteration keyframe-store slot. With a distinct-keyframe
@@ -316,10 +317,26 @@ def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs,
     gradient's norm to means2d_grad_accum and one to denom, and keeps the
     running max of the radii.
 
+    One copy of the stepped leaves: nothing of an iteration's render, loss
+    or backward (its graph, which holds the structure and K1's output, the
+    leaves' views, the radii) outlives that backward, and its gradients and
+    optim.adam_step's result go once the step is taken. With in_place the
+    caller hands over gm's tensors (SLAMRuntime: views of its map's
+    storage): every step, opacity reset and prune is written into them,
+    and the map returned holds those same tensors. Without it gm is left
+    as it came: each step's result replaces the phase's own copy.
+
+    mapping_phase.totals counts the phases run, those run in_place, and the
+    Gaussians they stepped (gm's rows; reset_map_totals zeroes it).
+
     Returns (map, opt_state, gsvars, hist): with record_hist, hist is a
     device tensor [num_iters, 3] of (loss, weighted depth loss, weighted im
     loss) per iteration (as tracking_phase's); else None."""
     gm = GaussianMap(*(a.detach() for a in gm))
+    totals = mapping_phase.totals
+    totals["phases"] += 1
+    totals["in_place"] += int(in_place)
+    totals["gaussians"] += gm.capacity
     structs = None
     if struct_qs is not None:
         structs = [loss_pair_structure(gm, sq, st_, cam, bands=bands, bin_opts=bin_opts)
@@ -354,29 +371,59 @@ def mapping_phase(gm: GaussianMap, kf_colors_u8, kf_depths, iter_slots, iter_qs,
                 grads = torch.autograd.grad(loss, wrt)
             if track_stats:
                 # 3DGS densification statistics (utils/slam_external.py:100-104).
-                grads, d_dummy = grads[:-1], grads[-1]
-                gsvars = accumulate_stats(gsvars, d_dummy, aux.radii)
+                gsvars = accumulate_stats(gsvars, grads[-1], aux.radii)
+                grads = grads[:-1]
             if hist is not None:
                 hist[i] = torch.stack([loss.detach(), aux.weighted_depth_loss,
                                        aux.weighted_im_loss])
+            del loss, aux, wrt, p, gm_i, dummy
             if prune_cfg.enabled:
                 with spans.span("prune"):
-                    active = _prune_mask(params["logit_opacities"], params["log_scales"],
+                    pruned = _prune_mask(params["logit_opacities"], params["log_scales"],
                                          active, it, scene_radius, prune_cfg)
+                    if in_place and pruned is not active:
+                        active.copy_(pruned)
+                    else:
+                        active = pruned
                     if (prune_cfg.reset_opacities and it > 0
                             and it % prune_cfg.reset_opacities_every == 0
                             and it <= prune_cfg.stop_after):
-                        inv_sig = torch.log(torch.tensor(0.01 / 0.99))
-                        params["logit_opacities"] = torch.full_like(
-                            params["logit_opacities"], float(inv_sig))
+                        inv_sig = float(torch.log(torch.tensor(0.01 / 0.99)))
+                        if in_place:
+                            params["logit_opacities"].fill_(inv_sig)
+                        else:
+                            params["logit_opacities"] = torch.full_like(
+                                params["logit_opacities"], inv_sig)
                         st = optim.AdamState(m=tuple(torch.zeros_like(x) for x in st.m),
                                              v=tuple(torch.zeros_like(x) for x in st.v),
                                              step=st.step)
             with spans.span("adam"):
                 new, st = optim.adam_step(st, tuple(params.values()), grads, plrs,
                                           eps=1e-15)
-            params = dict(zip(keys, new))
+                del grads
+                if in_place:
+                    _write_into(params.values(), new)
+                else:
+                    params = dict(zip(keys, new))
+                del new
     return gm._replace(**params, active=active), st, gsvars, hist
+
+
+def _write_into(leaves, values) -> None:
+    """Copy each value into its leaf, outside autograd (a function, so
+    that no loop variable keeps the last value alive)."""
+    with torch.no_grad():
+        for leaf, value in zip(leaves, values):
+            leaf.copy_(value)
+
+
+def reset_map_totals() -> None:
+    """Zero mapping_phase.totals: the phases run since, those that stepped
+    their caller's leaves in place, and the Gaussians they stepped."""
+    mapping_phase.totals = dict(phases=0, in_place=0, gaussians=0)
+
+
+reset_map_totals()
 
 
 def accumulate_stats(gsvars: tuple, d_dummy, radii) -> tuple:
