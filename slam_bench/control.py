@@ -4,21 +4,25 @@ sound readings over many seeds, the control's, and the planted faults'.
     python3 -m slam_bench.control --workload replica_bench.fr1_desk \\
         --seeds 11 12 13 --control --faults
 
-For every seed, in one process: the cell's set-up (frames from the seed,
-SLAMRuntime, the set-up frames, and --after more frames), then check
-frames through the window's own frame call (slam_bench/check.py):
-  * sound: the program as it is, against the float32 reference;
-  * with --control, on that same check frame, the control: the reference
-    in TF32 (the configuration states float32 with TF32 off) put in the
-    program's place and judged by the same numbers;
-  * with --faults, one more check frame per planted fault: every optimizer
-    step returning its state unchanged, the loss over half of the frame
-    (its bottom half's depth left out), every render's colour altered by 1%
-    where the render is made, and densification's new Gaussians placed 1%
-    too deep along their rays where they are made.
-Prints one JSON line per reading: {"seed", "kind", "readings"}. Never run by
-the benchmark's own runs; slam_bench/tests/test_control.py runs it on the
-card.
+For every seed, in one process, through the cell's loop
+(slam_bench/loops/<loop>.py): the cell's set-up (the loop's inputs from
+the seed, the loop, the set-up units, and --after more units), then check
+units through the window's own call:
+  * sound: the program as it is, against the reference;
+  * with --control, on that same check unit, the control: the reference
+    in the next precision down (the online loop's: TF32, where the
+    configuration states float32 with TF32 off) put in the program's place
+    and judged by the same numbers;
+  * with --faults, one more check unit per fault the loop plants (the
+    online loop's: every optimizer step returning its state unchanged, the
+    loss over half of the frame, every render's colour altered by 1% where
+    the render is made, densification's new Gaussians placed 1% too deep).
+Prints one JSON line per reading: {"workload", "seed", "kind", "seconds",
+"readings"}, with the check's own line and its extras (the online loop's:
+both sides' losses, tracking's first gradient and step by leaf) beside the
+sound's and the faults'.
+Never run by the benchmark's own runs; slam_bench/tests/test_control.py
+runs it on the card.
 """
 from __future__ import annotations
 
@@ -31,45 +35,9 @@ import time
 
 from slam_bench import spec
 
-FAULTS = ("state_unchanged", "half_batch", "answer_altered", "densify_altered")
-
-
-@contextlib.contextmanager
-def planted(fault: str):
-    """The program with one fault planted, for the duration."""
-    from splatam_tpu_torch.render import api
-    from splatam_tpu_torch.slam import optim, steps
-
-    if fault == "state_unchanged":
-        module, name, orig = optim, "adam_step", optim.adam_step
-
-        def broken(state, params, grads, lrs, eps):
-            return tuple(params), orig(state, params, grads, lrs, eps)[1]
-    elif fault == "half_batch":
-        module, name, orig = steps, "get_loss", steps.get_loss
-
-        def broken(gm, q, t, color, depth_gt, cam, *args, **kwargs):
-            half = depth_gt.clone()
-            half[half.shape[0] // 2:] = 0.0
-            return orig(gm, q, t, color, half, cam, *args, **kwargs)
-    elif fault == "answer_altered":
-        module, name, orig = api, "_public", api._public
-
-        def broken(img, radii, n_pairs):
-            out = orig(img, radii, n_pairs)
-            return out._replace(im=out.im * 1.01)
-    elif fault == "densify_altered":
-        module, name, orig = steps, "backproject_pointcloud", steps.backproject_pointcloud
-
-        def broken(color, depth, *args):
-            return orig(color, depth * 1.01, *args)
-    else:
-        raise ValueError(f"unknown fault {fault!r}")
-    setattr(module, name, broken)
-    try:
-        yield
-    finally:
-        setattr(module, name, orig)
+# the online loop's faults, under the names they have had here
+FAULTS = spec.load_loop("online").FAULTS
+planted = spec.load_loop("online").planted
 
 
 def readings_for_seed(cell: spec.Cell, seed: int, device, control: bool, faults: bool,
@@ -77,39 +45,26 @@ def readings_for_seed(cell: spec.Cell, seed: int, device, control: bool, faults:
     import numpy as np
     import torch
 
-    from slam_bench import check, traffic
-    from slam_bench.loop import Loop
-
     np.random.seed(seed % 2**32)
     torch.manual_seed(seed)
-    plan = traffic.Plan(cell.traffic, seed, int(cell.traffic["setup_frames"]) + after + 1)
-    frames = traffic.make_frames(plan, cell.config["camera"], cell.config["sensor"],
-                                 cell.config["scene"], seed, device)
+    i = int(cell.traffic["setup_frames"]) + after
+    inputs = cell.loop.make_inputs(cell, seed, i + 1, device)
     follow_cfg = cell.limits["follow"]
     with tempfile.TemporaryDirectory(prefix="slam_bench_") as workdir:
-        kinds = ["sound", *(FAULTS if faults else ())]
-        for kind in kinds:
-            loop = Loop(cell.config, plan, frames, device, workdir)
-            i = plan.n_frames - 1
+        for kind in ["sound", *(cell.loop.FAULTS if faults else ())]:
+            loop = cell.loop.Loop(cell.config, inputs, device, workdir)
             for j in range(i):
                 loop.frame(j)
             t0 = time.perf_counter()
-            with planted(kind) if kind in FAULTS else contextlib.nullcontext():
-                readings, obs, ref = check.check(loop, i, follow_cfg)
-            first = obs.first.get("track", {}).get("step", [])
-            emit(seed, kind, readings, time.perf_counter() - t0,
-                 losses={"track": [obs.track_losses[:len(ref.track["losses"])],
-                                   ref.track["losses"]],
-                         "map": [obs.map_losses[:len(ref.map["losses"])], ref.map["losses"]]},
-                 track_grad=[[v.tolist() for v in obs.first.get("track", {}).get("grads", [])],
-                             [v.tolist() for v in ref.track["grads"]]],
-                 track_step=[[v.tolist() for v in first], [v.tolist() for v in ref.track["step"]]])
+            with cell.loop.planted(kind) if kind in cell.loop.FAULTS else contextlib.nullcontext():
+                judged = cell.loop.check(loop, i, follow_cfg)
+            emit(seed, kind, judged.readings, time.perf_counter() - t0, line=judged.line,
+                 **judged.extras)
             if kind == "sound" and control:
                 t1 = time.perf_counter()
-                emit(seed, "control", check.control_readings(obs, cell.config, loop.stream, device,
-                                                             follow_cfg),
+                emit(seed, "control", cell.loop.control_readings(loop, judged, follow_cfg),
                      time.perf_counter() - t1)
-            del obs, ref, loop
+            del judged, loop
             if device.type == "cuda":
                 torch.cuda.empty_cache()
 

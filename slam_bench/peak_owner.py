@@ -4,7 +4,8 @@ time: one run of slam_bench.run with the program's span recorder
 (render/binning.py build_bins) wrapped, so that the allocator's peak
 (torch.cuda.max_memory_allocated) is read and reset at every span boundary
 and each stretch is put down to the innermost open span, a build as its own
-`build_bins`. The check frame after the window is left out. Prints, after
+`build_bins`. The check unit after the window is left out: the cell's loop's
+`check` (slam_bench/loops/<loop>.py) is wrapped to freeze the split. Prints, after
 the run's own lines on standard error: the run's peak and the span path
 holding it, each span's peak, and the bytes each build held above what was
 live when it started, a pair.
@@ -78,14 +79,17 @@ class _Spanned:
         return out
 
 
-def install(split: Split):
-    """Wrap spans.span, binning.build_bins and slam_bench.check.check (the
-    check frame freezes the split); returns a function that unwraps them."""
-    from slam_bench import check
+def install(split: Split, loop=None):
+    """Wrap spans.span, binning.build_bins and the `check` of `loop`, a loop
+    file's module (spec.Cell.loop; by default slam_bench.check, whose check
+    the online loop's calls): the check unit freezes the split. Returns a
+    function that unwraps them."""
+    if loop is None:
+        from slam_bench import check as loop
     from splatam_tpu_torch.render import binning
     from splatam_tpu_torch.utils import spans
 
-    span, build_bins, check_fn = spans.span, binning.build_bins, check.check
+    span, build_bins, check_fn = spans.span, binning.build_bins, loop.check
     spans.span = lambda name, frame=None: _Spanned(split, span(name, frame), name)
 
     def build(*args, **kwargs):
@@ -109,11 +113,11 @@ def install(split: Split):
         split.frozen = True
         return check_fn(*args, **kwargs)
 
-    check.check = frozen_check
+    loop.check = frozen_check
 
     def restore() -> None:
         build_bins.totals = binning.build_bins.totals
-        spans.span, binning.build_bins, check.check = span, build_bins, check_fn
+        spans.span, binning.build_bins, loop.check = span, build_bins, check_fn
 
     return restore
 
@@ -121,13 +125,14 @@ def install(split: Split):
 def main(argv=None) -> int:
     import torch
 
-    from slam_bench import run
+    from slam_bench import run, spec
 
     if not torch.cuda.is_available():
         print("peak_owner: needs a CUDA device", file=sys.stderr)
         return 2
     split = Split(torch)
-    install(split)
+    # the Cell that run.main builds hands out this same loop module, wrapped
+    install(split, spec.Cell(spec.load(), run.parse(argv).workload).loop)
     rc = run.main(argv)
     split.fold()
     split.report(sys.stderr)

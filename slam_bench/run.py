@@ -3,24 +3,27 @@
     python3 -m slam_bench.run --workload replica_bench.fr1_desk --seed 7 \\
         --seconds 30 --trace 0
 
-Set-up: the port's kernels (built into build/splatam_tpu_torch/ inside the
-checkout at first use, found there after), the cell's frames made on the
-card from --seed (slam_bench/traffic.py), SLAMRuntime built on them, and
-the traffic's set-up frames run through the same frame call the window
-uses. Then the window: frames one after another, each prepare_frame +
-run_frame + a synchronize. The window holds a fixed number of frames,
-round(--seconds / the configuration's window.frame_s): the same work for a
-faster or a slower program, lasting about --seconds for the program the
-cell was defined on (the trajectory's later frames cost more than its
-earlier ones, as the map and the keyframes grow). --trace 0 reports the
-end-to-end metrics: setup_s and the device memory's peak over set-up and
-the window. --trace 1 also profiles the traffic's trace_frames frames
-after the window and reports the per-layer metrics
-(slam_bench/metrics/<name>.py), the window's seconds a frame among them.
-Either way one more frame, the
-check frame, is held against the plain reference (slam_bench/check.py),
+The cell's loop (slam_bench/loops/<loop>.py, which its configuration
+names; the online SLAM loop where it names none) runs it in units: a
+sensor frame of the online loop. Set-up: the port's kernels (built into
+build/splatam_tpu_torch/ inside the checkout at first use, found there
+after), the loop's inputs made from --seed (the online loop's frames, on
+the card, slam_bench/traffic.py), the loop built on them (SLAMRuntime),
+and the traffic's set-up units run through the same call the window uses.
+Then the window: units one after another, each closed by a synchronize
+(the online loop's prepare_frame + run_frame). The window holds a fixed
+number of units, round(--seconds / the configuration's window.frame_s):
+the same work for a faster or a slower program, lasting about --seconds
+for the program the cell was defined on (the trajectory's later frames
+cost more than its earlier ones, as the map and the keyframes grow).
+--trace 0 reports the end-to-end metrics: setup_s and the device memory's
+peak over set-up and the window. --trace 1 also profiles the traffic's
+trace_frames units after the window and reports the per-layer metrics
+(slam_bench/metrics/<name>.py), the window's seconds a unit among them.
+Either way one more unit, the check unit, is held against the plain
+reference by the loop's check (the online loop's: slam_bench/check.py),
 and the last line on standard output is one JSON object: correct,
-attempted (frames measured), failed, metrics, device, with --trace 1
+attempted (units measured), failed, metrics, device, with --trace 1
 breakdown, and last `checks`, each number compared with its limit (also
 the last lines on standard error).
 
@@ -105,8 +108,8 @@ def main(argv=None, device: str | None = None, root=spec.ROOT) -> int:
     on the CPU in place of the card and skips the look for one; `root`
     (for tests) is the directory holding BENCHMARK.json and slam_bench/."""
     args = parse(argv)
-    cell = spec.Cell(spec.load(root), args.workload, root / "slam_bench")
     cache_dirs()
+    cell = spec.Cell(spec.load(root), args.workload, root / "slam_bench")
     import numpy as np
     import torch
 
@@ -119,25 +122,24 @@ def main(argv=None, device: str | None = None, root=spec.ROOT) -> int:
         device = "cuda"
     dev = torch.device(device)
 
-    from slam_bench import check, trace, traffic
-    from slam_bench.loop import Loop
+    from slam_bench import trace
 
     np.random.seed(args.seed % 2**32)  # the runtime's keyframe draws use np.random
     torch.manual_seed(args.seed)
     window_frames = window_length(cell.config, args.seconds)
-    traced = int(cell.traffic["trace_frames"]) + TRACE_RETRIES if args.trace else 0
-    n_frames = int(cell.traffic["setup_frames"]) + window_frames + traced + 1
-    plan = traffic.Plan(cell.traffic, args.seed, n_frames)
+    setup_frames = int(cell.traffic["setup_frames"])
+    trace_frames = int(cell.traffic["trace_frames"])
+    traced = trace_frames + TRACE_RETRIES if args.trace else 0
+    n_frames = setup_frames + window_frames + traced + 1
     t_frames = time.perf_counter()
-    frames = traffic.make_frames(plan, cell.config["camera"], cell.config["sensor"],
-                                 cell.config["scene"], args.seed, dev)
+    inputs = cell.loop.make_inputs(cell, args.seed, n_frames, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     with tempfile.TemporaryDirectory(prefix="slam_bench_") as workdir:
-        loop = Loop(cell.config, plan, frames, dev, workdir)
+        loop = cell.loop.Loop(cell.config, inputs, dev, workdir)
         t_warm = time.perf_counter()
-        warm = [loop.frame(i) for i in range(plan.setup_frames)]
-        i = plan.setup_frames
+        warm = [loop.frame(i) for i in range(setup_frames)]
+        i = setup_frames
         setup_s = process_age()
         print(f"slam_bench: set-up {setup_s:.3f} s: frames made in {t_warm - t_frames:.3f} s, "
               f"set-up frames " + " ".join(f"{t:.3f}" for t in warm), file=sys.stderr)
@@ -156,13 +158,13 @@ def main(argv=None, device: str | None = None, root=spec.ROOT) -> int:
         tr = None
         if args.trace:
             tr = trace.Trace(device=dev.type, loop_s=window, loop_frames=times)
-            for _ in range(plan.trace_frames + TRACE_RETRIES):
+            for _ in range(trace_frames + TRACE_RETRIES):
                 seen, launched = trace.trace_frame(loop, i, tr)
                 if seen != launched:
                     print(f"slam_bench: frame {i} not traced: the profiler saw {seen} of "
                           f"{launched} launches of the port's kernels", file=sys.stderr)
                 i += 1
-                if tr.frames == plan.trace_frames:
+                if tr.frames == trace_frames:
                     break
             attempted += tr.frames
         else:
@@ -174,13 +176,11 @@ def main(argv=None, device: str | None = None, root=spec.ROOT) -> int:
                     metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
         peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
         t_check = time.perf_counter()
-        readings, obs, ref = check.check(loop, i, cell.limits["follow"])
+        judged = cell.loop.check(loop, i, cell.limits["follow"])
+        readings = judged.readings
         print(f"slam_bench: check frame {i} and reference {time.perf_counter() - t_check:.3f} s; "
-              f"tracking's losses {obs.track_losses[:len(ref.track['losses'])]} against "
-              f"{ref.track['losses']}, mapping's {obs.map_losses[:len(ref.map['losses'])]} "
-              f"against {ref.map['losses']}", file=sys.stderr)
-        del obs, ref
-        del loop
+              f"{judged.line}", file=sys.stderr)
+        del judged, loop
     found = forbidden_modules()
     if found:
         print(f"slam_bench: loaded after the window: {', '.join(found)}", file=sys.stderr)

@@ -68,8 +68,8 @@ def main(argv=None, device: str | None = None, root=spec.ROOT) -> int:
     ap.add_argument("--pairs", type=int, default=4)
     ap.add_argument("--traced", type=int, default=3)
     args = ap.parse_args(argv)
-    cell = spec.Cell(spec.load(root), args.workload, root / "slam_bench")
     run.cache_dirs()
+    cell = spec.Cell(spec.load(root), args.workload, root / "slam_bench")
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -77,8 +77,6 @@ def main(argv=None, device: str | None = None, root=spec.ROOT) -> int:
     if device is None and not torch.cuda.is_available():
         print("slam_bench.span_cost: needs a CUDA device", file=sys.stderr)
         return 2
-    from slam_bench import traffic
-    from slam_bench.loop import Loop
     from splatam_tpu_torch.utils import spans
 
     dev = torch.device(device or "cuda")
@@ -86,10 +84,9 @@ def main(argv=None, device: str | None = None, root=spec.ROOT) -> int:
     np.random.seed(args.seed % 2**32)
     torch.manual_seed(args.seed)
     window = run.window_length(cell.config, args.seconds)
-    n_frames = int(cell.traffic["setup_frames"]) + window + 4 * args.pairs + args.traced
-    plan = traffic.Plan(cell.traffic, args.seed, n_frames)
-    frames = traffic.make_frames(plan, cell.config["camera"], cell.config["sensor"],
-                                 cell.config["scene"], args.seed, dev)
+    setup_frames = int(cell.traffic["setup_frames"])
+    n_frames = setup_frames + window + 4 * args.pairs + args.traced
+    inputs = cell.loop.make_inputs(cell, args.seed, n_frames, dev)
     off_ns = {"span": per_call_ns(spans.span), "waited": per_call_ns(spans.waited)}
     spans.enable()
     on_ns = {"span": per_call_ns(spans.span), "waited": per_call_ns(spans.waited)}
@@ -100,10 +97,10 @@ def main(argv=None, device: str | None = None, root=spec.ROOT) -> int:
     idle = defaultdict(int)
     idle_ns = wall_ns = 0
     with tempfile.TemporaryDirectory(prefix="slam_bench_") as workdir:
-        loop = Loop(cell.config, plan, frames, dev, workdir)
-        for i in range(plan.setup_frames):
+        loop = cell.loop.Loop(cell.config, inputs, dev, workdir)
+        for i in range(setup_frames):
             loop.frame(i)
-        i = plan.setup_frames
+        i = setup_frames
         times = []
         for _ in range(window):
             times.append(loop.frame(i))

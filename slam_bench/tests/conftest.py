@@ -22,7 +22,7 @@ def make_tiny_root(root):
     plus the tiny cell; returns root."""
     bench_dir = root / "slam_bench"
     bench_dir.mkdir(parents=True)
-    for d in ("metrics", "configs", "limits", "traffic"):
+    for d in ("metrics", "configs", "limits", "traffic", "loops"):
         shutil.copytree(spec.BENCH_DIR / d, bench_dir / d)
     bench = spec.load()
     cfg = json.loads((spec.BENCH_DIR / "configs" / "replica_bench.json").read_text())

@@ -49,18 +49,29 @@ def test_names_and_units_use_only_the_allowed_characters(bench):
             assert m["unit"] == "%"
 
 
+def check_cell(bench: dict, name: str, bench_dir=spec.BENCH_DIR) -> None:
+    """One cell finds its files, loop and readers: its limits name exactly
+    its loop's numbers (an online cell's also its experiment, its traffic's
+    frame rate and the three numbers every online check compares), and it
+    reports setup_s, another end-to-end metric and a per-layer metric."""
+    e2e = {m["name"] for m in bench["end_to_end"]}
+    cell = spec.Cell(bench, name, bench_dir)
+    assert set(cell.limits["limits"]) == set(cell.loop.NUMBERS)
+    if cell.loop is spec.load_loop("online", bench_dir):
+        assert cell.config["experiment"] and cell.traffic["fps"]
+        assert set(cell.loop.NUMBERS) == set(check.NUMBERS)
+        assert {"track_loss_gap", "map_loss_gap", "map_step_gap"} <= set(cell.limits["limits"])
+    reported = {m["name"] for m in cell.end_to_end}
+    assert "setup_s" in reported and len(reported) >= 2 and reported <= e2e
+    assert cell.per_layer, name
+    for m in cell.per_layer:
+        assert callable(cell.reader(m["name"]).read)
+
+
 def test_every_cell_finds_its_files_and_readers(bench):
     e2e = {m["name"] for m in bench["end_to_end"]}
     for w in bench["workloads"]:
-        cell = spec.Cell(bench, w["name"])
-        assert cell.config["experiment"] and cell.traffic["fps"]
-        assert set(cell.limits["limits"]) <= set(check.NUMBERS)
-        assert {"track_loss_gap", "map_loss_gap", "map_step_gap"} <= set(cell.limits["limits"])
-        reported = {m["name"] for m in cell.end_to_end}
-        assert "setup_s" in reported and len(reported) >= 2 and reported <= e2e
-        assert cell.per_layer, w["name"]
-        for m in cell.per_layer:
-            assert callable(cell.reader(m["name"]).read)
+        check_cell(bench, w["name"])
     for m in bench["per_layer"]:
         assert m["moves"] in e2e
 
